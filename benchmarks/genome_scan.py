@@ -1,9 +1,10 @@
 """Heuristic multi-query genome scan benchmark (BASELINE.json config #5).
 
 Synthesizes a genome with gene copies of the calm.human cDNA (exons
-split by introns, mutated per gene) embedded in random background, then
-runs the full heuristic pipeline — seeding, locus clustering, batched
-fused-kernel scans and path DPs — for a batch of mutated query cDNAs.
+split by introns, mutated per gene) embedded in random background
+(benchmarks/fixtures.py), then runs the full heuristic pipeline —
+seeding, band planning, device band scans and host locus resolution —
+for a batch of mutated query cDNAs.
 
 Reports queries/s, alignments found, and recall (every query must map
 to a locus with an intron-containing vulgar line).
@@ -17,65 +18,18 @@ import os
 import sys
 import time
 
-import numpy as np
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def synthesize(n_genes: int, genome_len: int, rng):
-    from exonerate_tpu.seqio import iter_fasta
-    calm = str(list(iter_fasta(
-        "/root/reference/test/data/cdna/calm.human.dna.fasta"))[0])
-    cdna = calm[:1200]
-    exons = [cdna[:400], cdna[400:800], cdna[800:]]
-    genome = rng.choice(list("acgt"), genome_len).tolist()
-    spacing = genome_len // (n_genes + 1)
-    loci = []
-    for g in range(n_genes):
-        pos = spacing * (g + 1)
-        start = pos
-        for i, exon in enumerate(exons):
-            ex = list(exon)
-            # ~1% mutations per gene copy
-            for _ in range(len(ex) // 100):
-                ex[rng.integers(0, len(ex))] = rng.choice(list("ACGT"))
-            genome[pos:pos + len(ex)] = ex
-            pos += len(ex)
-            if i < len(exons) - 1:
-                ilen = int(rng.integers(200, 1200))
-                intron = ["g", "t"] + rng.choice(
-                    list("acgt"), ilen - 4).tolist() + ["a", "g"]
-                genome[pos:pos + ilen] = intron
-                pos += ilen
-        loci.append((start, pos))
-    return cdna, "".join(genome), loci
-
-
 def main(n_genes=8, n_queries=16, genome_mb=1.0):
+    import exonerate_tpu
+    from benchmarks import fixtures
     from exonerate_tpu.cli.exonerate import main as exonerate_main
 
-    rng = np.random.default_rng(7)
-    genome_len = int(genome_mb * 1e6)
-    cdna, genome, loci = synthesize(n_genes, genome_len, rng)
-
-    queries = []
-    for qn in range(n_queries):
-        q = list(cdna)
-        for _ in range(len(q) // 50):          # ~2% mutations per query
-            q[rng.integers(0, len(q))] = rng.choice(list("ACGT"))
-        queries.append("".join(q))
-
-    import tempfile
-    d = tempfile.mkdtemp()
-    qf = os.path.join(d, "q.fa")
-    tf = os.path.join(d, "t.fa")
-    with open(qf, "w") as f:
-        for i, q in enumerate(queries):
-            f.write(f">q{i}\n{q}\n")
-    with open(tf, "w") as f:
-        f.write(">genome\n" + genome + "\n")
-
+    exonerate_tpu.enable_compilation_cache()
+    qf, tf, _ = fixtures.scan_inputs(n_genes=n_genes, n_queries=n_queries,
+                                     genome_mb=genome_mb)
     args = ["-m", "est2genome", "--bestn", "1", "--maxintron", "20000",
             "--showvulgar", "yes", "--showalignment", "no", qf, tf]
     t0 = time.time()
@@ -86,7 +40,7 @@ def main(n_genes=8, n_queries=16, genome_mb=1.0):
     vulgar = [ln for ln in text.splitlines() if ln.startswith("vulgar:")]
     with_intron = [ln for ln in vulgar if " I " in ln]
     hit_queries = {ln.split()[1] for ln in vulgar}
-    print(f"genome {genome_len/1e6:.1f} Mb, {n_genes} genes, "
+    print(f"genome {genome_mb:.1f} Mb, {n_genes} genes, "
           f"{n_queries} queries")
     print(f"wall {dt:.1f}s  ->  {n_queries/dt:.2f} queries/s")
     print(f"alignments: {len(vulgar)} ({len(with_intron)} spliced), "
@@ -98,6 +52,6 @@ def main(n_genes=8, n_queries=16, genome_mb=1.0):
 
 if __name__ == "__main__":
     a = [float(x) for x in sys.argv[1:]]
-    sys.exit(main(*[int(a[0]) if a else 8,
-                    int(a[1]) if len(a) > 1 else 16,
-                    a[2] if len(a) > 2 else 1.0][:3]))
+    sys.exit(main(int(a[0]) if a else 8,
+                  int(a[1]) if len(a) > 1 else 16,
+                  a[2] if len(a) > 2 else 1.0))

@@ -1,10 +1,11 @@
 """Shared builder for the packaged C++ runtime components.
 
 The native sources (sdplib.cpp, seedlib.cpp) ship inside the package;
-shared objects are compiled on first use into a content-hash-keyed user
-cache (the runtime analogue of the reference bootstrapper's build-time
-archive, ref: src/model/bootstrapper.c:199-265) so installed copies work
-from any CWD and rebuild automatically when the source changes.
+shared objects are compiled on first use into a content-hash-keyed
+cache beside the package (native/build/, or EXONERATE_TPU_NATIVE_DIR),
+the runtime analogue of the reference bootstrapper's build-time archive
+(ref: src/model/bootstrapper.c:199-265), so they rebuild automatically
+when the source changes.
 """
 from __future__ import annotations
 
@@ -16,11 +17,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 
 
 def _cache_dir() -> str:
-    d = os.environ.get("EXONERATE_TPU_NATIVE_DIR")
-    if not d:
-        d = os.path.join(os.path.expanduser("~"), ".cache",
-                         "exonerate_tpu", "native")
-    return d
+    return os.environ.get("EXONERATE_TPU_NATIVE_DIR") or os.path.join(
+        os.path.dirname(_PKG), "native", "build")
 
 
 def build_lib(src_name: str) -> str | None:

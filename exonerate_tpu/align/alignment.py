@@ -1,6 +1,6 @@
 """Alignment objects: region + (transition, length) operation list.
 
-TPU-native equivalent of the reference Alignment module core
+Equivalent of the reference Alignment module core
 (ref: src/c4/alignment.{h,c}): holds the path through a model, validates it,
 computes per-transition scores and the equivalenced statistics behind
 %id/%similarity and --percent thresholds.

@@ -1,6 +1,6 @@
 """Alphabets and symbol filter tables.
 
-TPU-native equivalent of the reference Alphabet module
+Equivalent of the reference Alphabet module
 (ref: src/sequence/alphabet.{h,c}): DNA/protein alphabets with 256-entry
 filter tables (masked/unmasked/complement/clean) as NumPy uint8 arrays so
 whole sequences filter as one vectorized gather.

@@ -1,6 +1,6 @@
 """exonerate-compatible CLI flag system.
 
-TPU-native equivalent of the reference Argument module
+Equivalent of the reference Argument module
 (ref: src/general/argument.{h,c}): options registered in sets with
 short/long names, typed parsers, defaults, per-option environment-variable
 fallback (EXONERATE_<LONGNAME>), auto --help, and mandatory positional

@@ -25,7 +25,7 @@ from . import args as A
 
 def build_parser() -> A.ArgumentParser:
     p = A.ArgumentParser(
-        "exonerate", "a generic sequence comparison tool (TPU-native)")
+        "exonerate", "a generic sequence comparison tool")
 
     seq = A.ArgumentSet("Sequence Input Options")
     seq.add("q", "query", "path", "Specify query sequences", None,
@@ -46,8 +46,16 @@ def build_parser() -> A.ArgumentParser:
     seq.add(None, "multihost", "axis",
             "Multi-process sharding axis (none|query|target): each JAX "
             "process takes one chunk on this axis and results merge "
-            "over DCN (the reference's external chunk concat, "
+            "by an all-gather (the reference's external chunk concat, "
             "first-class)", "none", A.parse_string)
+    seq.add(None, "coordinator", "host:port",
+            "Coordinator of a --multihost job (process 0 listens here)",
+            "NULL", A.parse_string)
+    seq.add(None, "processcount", "n",
+            "Number of processes in a --multihost job", "0", A.parse_int)
+    seq.add(None, "processid", "id",
+            "This process's index (0-based) in a --multihost job", "0",
+            A.parse_int)
     seq.add("V", "verbose", "level", "Show search progress", "1",
             A.parse_int, "verbose")
     seq.add(None, "fastasuffix", "suffix",

@@ -410,7 +410,7 @@ class ExonerateServer:
             # postings sharded over every attached device; `get hsps`
             # word lookups become one collective gather per query
             # (ref: the serving loop exonerate-server.c:315-378 —
-            # the TPU-native replacement for its postings scan)
+            # the device replacement for its postings scan)
             import jax
             import numpy as np
             from jax.sharding import Mesh
@@ -484,6 +484,8 @@ class ExonerateServer:
 
 
 def main(argv=None, out=None):
+    from .. import enable_compilation_cache
+    enable_compilation_cache()
     argv = argv if argv is not None else sys.argv[1:]
     out = out or sys.stdout
     p = A.ArgumentParser("exonerate-server",

@@ -1,6 +1,6 @@
 """Codon substitution matrices.
 
-TPU-native equivalent of the reference CodonSubmat
+Equivalent of the reference CodonSubmat
 (ref: src/sequence/codonsubmat.{h,c}): a 125x125 codon-by-codon score
 matrix (5 nucleotide classes A,C,G,T,N per position) built from an
 amino-acid substitution matrix through the genetic code, with a

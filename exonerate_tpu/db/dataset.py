@@ -1,6 +1,6 @@
 """Binary sequence datasets (.esd equivalent).
 
-TPU-native redesign of the reference Dataset (ref: src/database/
+Redesign of the reference Dataset (ref: src/database/
 dataset.{h,c}): sequences bit-packed (4 bases/byte for unmasked DNA,
 1 byte/symbol otherwise) in one flat array with an id-sorted record table
 (offset, length, checksum) — stored as an .npz so slabs memory-map and ship

@@ -1,6 +1,6 @@
 """On-disk word indexes (.esi equivalent).
 
-TPU-native redesign of the reference Index (ref: src/database/
+Redesign of the reference Index (ref: src/database/
 index.{h,c}): per-strand word tables (packed word -> postings offset/count)
 and postings (sequence id, position) as flat sorted numpy arrays.  Lookup
 is a vectorized searchsorted join — the structure doubles as the on-device

@@ -1,6 +1,6 @@
 """Optimal: the find-score / find-path facade.
 
-TPU-native equivalent of the reference Optimal (ref: src/c4/optimal.{h,c}):
+Equivalent of the reference Optimal (ref: src/c4/optimal.{h,c}):
 find_path = reduced-space FIND_REGION over the full rectangle (on the JAX
 wavefront engine) followed by a traceback DP restricted to the discovered
 alignment region (on the NumPy interpreter, whose per-cell cost only pays
@@ -10,10 +10,9 @@ the O(diagonal)-memory pass.
 """
 from __future__ import annotations
 
-import os
-
 from typing import Optional
 
+from .. import device as hw
 from ..align.alignment import Alignment
 from ..model.ir import Model
 from .region import Region
@@ -59,27 +58,25 @@ def _native_res(model: Model, region: Region, data, mode, subopt):
         return None
 
 
-# up to this many cells the native dense DP beats device dispatch
-# when no accelerator is attached
-NATIVE_DIRECT_CELLS = int(os.environ.get(
-    "EXONERATE_TPU_NATIVE_CELLS", 16_000_000))
+# without an accelerator, the native dense DP serves up to this many
+# cells (larger jobs take the XLA wavefront engine on the CPU)
+NATIVE_DIRECT_CELLS = 16_000_000
 
-# with a TPU attached, the native engine (~3 MCUPS dense) only beats the
-# fused kernel (+~150 ms dispatch latency) below ~1M cells
-NATIVE_TPU_CELLS = int(os.environ.get(
-    "EXONERATE_TPU_NATIVE_CELLS_TPU", 1_000_000))
+# with an accelerator attached, jobs above this many cells go to the
+# device wavefront engine.  Carried over from the earlier accelerator,
+# where the native engine (~3 M cells/s dense) beat the device's
+# dispatch latency below ~1M cells; not yet re-measured on the GPU
+# (ROADMAP A5)
+NATIVE_ACCEL_CELLS = 1_000_000
 
 
 def _prefer_native(region: Region, masked: bool = False) -> bool:
     cells = ((region.query_length + 1) * (region.target_length + 1))
-    if cells <= NATIVE_TPU_CELLS:
+    if cells <= NATIVE_ACCEL_CELLS:
         return True
-    if _use_pallas_prescan() and not masked:
-        # a TPU is attached and the job is mask-free: the fused kernel
-        # (+~150 ms dispatch) beats the ~3 MCUPS native dense DP above
-        # ~1M cells.  Masked Waterman-Eggert re-runs stay native: each
-        # arrives as a lone call whose skewed-mask kernel variant would
-        # compile per bucket shape (batching them is future work).
+    if hw.exhaustive_on_device() and not masked:
+        # masked Waterman-Eggert re-runs stay native: each arrives as a
+        # lone call whose masked variant would compile per shape
         return False
     return cells <= NATIVE_DIRECT_CELLS
 
@@ -87,25 +84,13 @@ def _prefer_native(region: Region, masked: bool = False) -> bool:
 def find_score(model: Model, region: Region, data, subopt=None) -> int:
     masked = subopt is not None and bool(subopt.points)
     if _prefer_native(region, masked=masked) \
-            or not _use_pallas_prescan():
+            or not hw.exhaustive_on_device():
         res = _native_res(model, region, data, "score", subopt)
         if res is not None:
             return res.score
     if _is_small(region):
         return reference.find_score(model, region, data, subopt)
     return wavefront.find_score(model, region, data, subopt)
-
-
-# force the Pallas region pre-scan (tests set this with interpret mode)
-_FORCE_PRESCAN = False
-_PRESCAN_INTERPRET = None
-
-
-def _use_pallas_prescan() -> bool:
-    if _FORCE_PRESCAN:
-        return True
-    import jax
-    return jax.default_backend() == "tpu"
 
 
 def find_path(model: Model, region: Region, data, subopt=None,
@@ -128,19 +113,16 @@ def find_path(model: Model, region: Region, data, subopt=None,
         observe.count_engine("oracle")
         res = reference.viterbi(model, region, data, "path", subopt)
         return _to_alignment(model, region, res)
-    if _use_pallas_prescan():
-        # reduced-space FIND_REGION on the fused kernel, then the
-        # traceback DP only on the discovered alignment's bounding box
-        # (ref: Optimal_find_path region-then-path, optimal.c).  The
-        # SubOpt mask (Waterman-Eggert re-runs) rides along as a
-        # device-built skewed plane — without it the scan would keep
-        # rediscovering the masked best alignment's box and miss the
-        # true next-best elsewhere; find_batched falls back to the
-        # mask-aware XLA engine when it can't serve the job.
-        from . import pallas_wavefront
-        scan = pallas_wavefront.find_batched(
-            model, [(region, data)], "region", subopt=subopt,
-            interpret=_PRESCAN_INTERPRET)[0]
+    if hw.exhaustive_on_device():
+        # reduced-space FIND_REGION on the device, then the traceback
+        # DP only on the discovered alignment's bounding box (ref:
+        # Optimal_find_path region-then-path, optimal.c).  The SubOpt
+        # mask (Waterman-Eggert re-runs) rides along as a blocked-cell
+        # plane, so the scan never rediscovers a masked alignment's box
+        from .. import observe
+        observe.count_engine("xla")
+        scan = wavefront.find_region(model, region, data, subopt,
+                                     device=device)
         if threshold is not None and scan.score < threshold:
             return None
         sub = Region(region.query_start + scan.query_start,
@@ -151,16 +133,6 @@ def find_path(model: Model, region: Region, data, subopt=None,
                 or sub.target_length < region.target_length):
             return find_path(model, sub, data, subopt,
                              threshold=threshold, device=device)
-        # traceback DP on the fused kernel: packed tb planes in HBM,
-        # on-device walk-back (falls back below when the kernel can't
-        # serve the job — blocked planes, unsupported kinds, huge cube)
-        res = pallas_wavefront.find_path_batched(
-            model, [(region, data)], subopt=subopt,
-            interpret=_PRESCAN_INTERPRET)[0]
-        if res is not None:
-            if threshold is not None and res.score < threshold:
-                return None
-            return _to_alignment(model, region, res)
     tb_bytes = ((region.query_length + 1) * (region.target_length + 1)
                 * len(model.states) * 2)
     if tb_bytes <= _native_tb_budget():

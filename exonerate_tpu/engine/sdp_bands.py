@@ -1,7 +1,7 @@
 """Band planning for the device-resident SDP heuristic.
 
 The sparse SDP scheduler (ref: src/sdp/scheduler.c) touches only cells
-reachable from HSP seeds within the dropoff; on TPU the equivalent is a
+reachable from HSP seeds within the dropoff; on the device the equivalent is a
 *dense band* decomposition: seeds cluster into target windows (full query
 height), and each comparison's bands concatenate into one **compressed
 target** so a single anti-diagonal scan covers every band.  Span

@@ -1,4 +1,4 @@
-"""Device-resident SDP passes: the default heuristic's DP on the TPU.
+"""Device-resident SDP passes: the default heuristic's DP on the GPU.
 
 This executes the reference SDP/Scheduler recurrence (ref: src/sdp/sdp.c,
 src/sdp/scheduler.c:700-1100) as dense anti-diagonal scans over the
@@ -296,11 +296,16 @@ def _unpack_bits(words, n):
 
 def build_pass(model: Model, Qp: int, Wp: int, kinds: tuple,
                use_boundary: bool, n_seed_pad: int, n_seg_pad: int,
-               dropoff: int, debug_planes: bool = False):
+               dropoff: int, debug_planes: bool = False, fold: int = 0):
     """Trace the fused reverse+forward band scan.  Returns
     run(inputs) -> {'band_end': [n_seg_pad], 'live': bool scalar,
-    'start_scores': [n_seed_pad] (non-boundary only)}."""
+    'start_scores': [n_seed_pad] (non-boundary only)}.  `fold`
+    diagonals run per scan step (0: the platform's value,
+    device.sdp_fold)."""
     assert not model.is_open
+    if not fold:
+        from .. import device
+        fold = device.sdp_fold()
     S = len(model.states)
     n_sh = model.total_shadow_designations
     start_id = model.start_state.state.id
@@ -744,14 +749,9 @@ def build_pass(model: Model, Qp: int, Wp: int, kinds: tuple,
                      for _ in spans)
 
     def run(inputs):
-        # G diagonals fold into each scan step on TPU, amortizing the
-        # sequential-loop overhead (the wavefront engine's unroll trick)
-        import os
-        try:
-            G = int(os.environ.get("EXONERATE_TPU_SDP_G", "0")) or \
-                (2 if jax.default_backend() == "tpu" else 1)
-        except Exception:
-            G = 1
+        # G diagonals fold into each scan step, amortizing the per-step
+        # loop overhead (the wavefront engine's unroll)
+        G = fold
         Dg = ((Dp + G - 1) // G) * G
         d_seq = jnp.arange(Dg, dtype=jnp.int32)
         if G > 1:

@@ -1,6 +1,6 @@
 """Hybrid SDP driver: device scores + lazy host band re-runs.
 
-The default heuristic path on TPU: per comparison, the band-compressed
+The default heuristic path on the GPU: per comparison, the band-compressed
 device scan (sdp_device.py) computes every locus's best end score; the
 next_path stream then resolves only the loci that can actually report
 (score >= threshold, in best-first order) by re-running the host native
@@ -12,7 +12,7 @@ redoes the whole comparison on the host global path — GAM only submits a
 comparison's results after the full list is built, so a retry never
 double-emits (ref: GAM_Result_submit ordering, gam.c:1252-1275).
 
-Byte parity therefore never depends on the device: the kernel is an
+Byte parity therefore never depends on the device: the scan is an
 accelerator with an exactness proof per run (liveness-clean + score
 agreement), not an approximation.
 """
@@ -216,26 +216,27 @@ def make_plan(model: Model, pair: SDPPair) -> sdp_bands.BandPlan:
         span_window=sw + 2 * BAND_MARGIN)
 
 
+# Gates for the DEFAULT (non-forced) device routing.  Their values were
+# set on an earlier accelerator reached over a network link, where each
+# device round trip cost a large fixed latency; they have not yet been
+# re-measured on the GPU (ROADMAP A5: that needs bench cells on both
+# sides of each gate).
+#
 # below this compressed width the host native scheduler finishes in
-# milliseconds and a first-time kernel compile (minutes) could never
-# amortize; small comparisons only take the device path when the user
-# forces it (EXONERATE_TPU_SDP=device / EXONERATE_TPU_SDP_KERNEL=1)
+# milliseconds and a first-time compile could never amortize; small
+# comparisons only take the device path when the user forces it
+# (EXONERATE_TPU_SDP=device)
 DEVICE_MIN_W = 16384
 # ... and below this many band cells (Q x W) the host scheduler's
-# sparse-live-cell walk beats the kernel's fixed dispatch+fetch
-# latency even at genome-scale W: a 149 aa protein2genome query
-# compresses to W<=46k but only ~7M cells (~30 ms host), while one
-# est2genome plus-strand comparison is >=35M cells (measured round 4)
+# sparse-live-cell walk beats the device call's fixed dispatch and
+# fetch cost even at genome-scale W (a 149 aa protein2genome query
+# compresses to W<=46k but only ~7M cells)
 DEVICE_MIN_CELLS = 16_000_000
-# ... and below this query length the anti-diagonal band kernel is
+# ... and below this query length the anti-diagonal band scan is
 # shape-starved regardless of total cells: its step count is W+Q+1
-# (driven by the huge band width) while each step only fills Q lanes
-# of the vector unit.  Measured round 5 on 64 x 149 aa x 10 Mb
-# protein2genome (W~160k per comparison): kernel path 143.6 s vs host
-# 33.0 s — the device loses 4.3x on exactly the workload whose cell
-# count clears DEVICE_MIN_CELLS.  A row-scan recurrence (steps ∝ Q,
-# vectors along W) is the right device shape for these; until it
-# exists, short-query comparisons stay host (see BASELINE.md round 5).
+# (driven by the huge band width) while each step only fills Q lanes.
+# A row-scan recurrence (steps ∝ Q, vectors along W) is the device
+# shape for these (sdp_rows.py, opt-in)
 DEVICE_MIN_Q = 512
 
 
@@ -245,7 +246,7 @@ def device_worthwhile(plan, query_length: int = None,
     tiny comparisons and lane-starved shapes stay on the host
     scheduler.  `rows_ok` lifts the short-query gate: the q-major
     row-scan engine (sdp_rows.py) is exactly the device shape the
-    anti-diagonal kernel is starved on (BASELINE.md round 5)."""
+    anti-diagonal scan is starved on (BASELINE.md)."""
     import os
     if os.environ.get("EXONERATE_TPU_SDP", "") == "device":
         return True
@@ -262,13 +263,12 @@ def device_worthwhile(plan, query_length: int = None,
 def rows_usable(model: Model, pair: SDPPair, plan=None) -> bool:
     """Route through the q-major row-scan engine (sdp_rows.py)?
     OPT-IN ONLY (EXONERATE_TPU_SDP_ROWS=1 or =all): the engine is
-    byte-parity-proven (differential suite + 15 CLI goldens) but
-    measured MEMORY-TRAFFIC-BOUND on the current chip — the exact
-    scheduler semantics cost ~400-2000 vector passes over the band per
-    row against the cost skeleton's ~50 (tools/kexp_row.py), landing at
-    3.1-3.8 s/DP on the 152aa x 131k-column north-star shape where the
-    sparse host walk takes ~0.15 s/DP (BASELINE.md round 6).  The knob
-    stays for A/B on future chips/compilers."""
+    byte-parity-proven (differential suite + CLI goldens) but was
+    measured memory-traffic-bound on the earlier accelerator — the
+    exact scheduler semantics cost ~400-2000 vector passes over the
+    band per row, against the ~50 of a relaxed cost skeleton — and far
+    slower than the sparse host walk on the short-query protein2genome
+    shape (BASELINE.md).  Not yet measured on the GPU."""
     import os
     env = os.environ.get("EXONERATE_TPU_SDP_ROWS", "")
     if env not in ("1", "all"):
@@ -336,57 +336,10 @@ def run_rows_batch(model: Model, jobs: list) -> list[dict]:
     return out
 
 
-def _kernel_usable(model: Model, pair: SDPPair, plan) -> bool:
-    """Route through the fused Pallas band-scan kernel?  Only on a real
-    TPU backend (interpret mode is test-only) for boundary-mode models
-    the kernel can express."""
-    import os
-    env = os.environ.get("EXONERATE_TPU_SDP_KERNEL", "")
-    if env == "0":
-        return False
-    try:
-        import jax
-        if jax.default_backend() in ("cpu",) and env != "1":
-            return False
-    except Exception:
-        return False
-    from . import sdp_pallas
-    n_layers = sdp_pallas.count_seed_layers(pair, plan)
-    return sdp_pallas.kernel_supported(model, pair.use_boundary,
-                                       n_layers, pair)
-
-
 # above this many compressed diagonals the XLA lax.scan expression is
-# slower than the host native scheduler (per-step dispatch overhead);
-# if the kernel can't serve such a comparison, fall straight back to
-# the host global path instead
+# slower than the host native scheduler for a lone comparison (per-step
+# dispatch overhead): fall straight back to the host global path
 SCAN_DIAG_CAP = 8192
-
-
-def _cross_chip_config(plan) -> int:
-    """Production cross-chip routing (VERDICT r4 #4): with
-    EXONERATE_TPU_CROSS_CHIP=N (N>=2) set and enough devices attached,
-    a comparison whose compressed band exceeds
-    EXONERATE_TPU_CROSS_CHIP_MIN_W (default 1M columns — a
-    chromosome-scale pair that would blow a single chip's HBM windows)
-    runs the band-scan kernel ONE-pair-across-chips with exact halo
-    relay (sdp_pallas.run_kernel_cross_chip).  Returns the chip count
-    to use, or 0 for the normal single-chip path."""
-    import os
-    n = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP", "0") or 0)
-    if n < 2 or plan is None:
-        return 0
-    min_w = int(os.environ.get("EXONERATE_TPU_CROSS_CHIP_MIN_W",
-                               str(1 << 20)))
-    if plan.W < min_w:
-        return 0
-    try:
-        import jax
-        if len(jax.devices()) < n:
-            return 0
-    except Exception:
-        return 0
-    return n
 
 
 def run_device(model: Model, pair: SDPPair,
@@ -395,22 +348,10 @@ def run_device(model: Model, pair: SDPPair,
     from .wavefront import _bucket
     if _rows_preferred(model, pair, plan):
         return run_rows_batch(model, [(pair, plan)])[0]
-    if _kernel_usable(model, pair, plan):
-        from . import sdp_pallas
-        n_chips = _cross_chip_config(plan)
-        if n_chips:
-            import jax
-            observe.count_engine("sdp-kernel-xchip")
-            return sdp_pallas.run_kernel_cross_chip(
-                model, pair, plan, pair.args.dropoff, n_chips,
-                devices=jax.devices()[:n_chips])
-        observe.count_engine("sdp-kernel")
-        return sdp_pallas.run_kernel(model, [(pair, plan)],
-                                     pair.args.dropoff)[0]
     Q = pair.region.query_length
     if Q + plan.W + 1 > SCAN_DIAG_CAP:
         observe.count_fallback(
-            "sdp device->host: kernel unavailable, scan too long")
+            "sdp device->host: scan too long for a lone comparison")
         raise HybridFallback()
     Qp, Wp = _bucket(Q), _bucket(plan.W)
     n_seed_pad = _pow2(len(pair.seeds))
@@ -436,60 +377,20 @@ def run_device_batch(model: Model, jobs: list) -> list[dict]:
     """Batched device pass over many comparisons' (pair, plan) jobs —
     one vmapped call per (shape, kinds) bucket, so a whole scan's SDP
     passes cost a handful of device dispatches instead of one per
-    comparison (the TPU replacement for the reference's per-comparison
-    thread pool, SURVEY.md §2.13)."""
+    comparison (the batched replacement for the reference's
+    per-comparison thread pool, SURVEY.md §2.13)."""
     import jax
     from .wavefront import _bucket
     out: list = [None] * len(jobs)
-    # row-scan tier first: short-query shapes (and kernel-ineligible
-    # jobs) run the q-major sweep (see _rows_preferred)
+    # row-scan tier first (opt-in, see rows_usable)
     rows_jobs = [ix for ix, (pair, plan) in enumerate(jobs)
                  if _rows_preferred(model, pair, plan)]
     if rows_jobs:
         rres = run_rows_batch(model, [jobs[ix] for ix in rows_jobs])
         for ix, r in zip(rows_jobs, rres):
             out[ix] = r
-        rest = [(ix, j) for ix, j in enumerate(jobs)
-                if ix not in set(rows_jobs)]
-        if not rest:
-            return out
-        remap0 = [ix for ix, _ in rest]
-        jobs = [j for _, j in rest]
-    else:
-        remap0 = list(range(len(jobs)))
-    # fused-kernel tier next: jobs the Pallas band scan can serve go
-    # through it (bucketed internally); the rest use the XLA scan
-    kernelable = [ix for ix, (pair, plan) in enumerate(jobs)
-                  if _kernel_usable(model, pair, plan)]
-    # chromosome-scale pairs split across chips (env-gated, see
-    # _cross_chip_config); they leave the batch and run one-by-one
-    xchip = [ix for ix in kernelable
-             if _cross_chip_config(jobs[ix][1])]
-    for ix in xchip:
-        out[remap0[ix]] = run_device(model, *jobs[ix])
-    kernelable = [ix for ix in kernelable if ix not in set(xchip)]
-    if kernelable:
-        from . import sdp_pallas
-        by_drop: dict = {}
-        for ix in kernelable:
-            by_drop.setdefault(jobs[ix][0].args.dropoff,
-                               []).append(ix)
-        for dropoff, ixs in by_drop.items():
-            kjobs = [jobs[ix] for ix in ixs]
-            observe.count_engine("sdp-kernel", len(kjobs))
-            kres = sdp_pallas.run_kernel(model, kjobs, dropoff)
-            for ix, r in zip(ixs, kres):
-                out[remap0[ix]] = r
-    if kernelable or xchip:
-        done = set(kernelable) | set(xchip)
-        jobs = [(ix, j) for ix, j in enumerate(jobs)
-                if ix not in done]
-        if not jobs:
-            return out
-        remap = [remap0[ix] for ix, _ in jobs]
-        jobs = [j for _, j in jobs]
-    else:
-        remap = list(remap0)
+    remap = [ix for ix in range(len(jobs)) if ix not in set(rows_jobs)]
+    jobs = [jobs[ix] for ix in remap]
     # coarse pow2 rungs on the compressed width keep the compiled-shape
     # count small (2-3 per scan) without the 2x+ padded-cell waste of a
     # single max-shape bucket; Q/seed/segment pads take the group max

@@ -1,6 +1,6 @@
 """Waterman-Eggert suboptimal-alignment masking.
 
-TPU-native equivalent of the reference SubOpt (ref: src/c4/subopt.{h,c}):
+Equivalent of the reference SubOpt (ref: src/c4/subopt.{h,c}):
 match positions of prior alignments block match transitions in later DPs.
 Positions are stored absolutely; engines ask for a per-row boolean mask in
 region-local coordinates (the dense replacement for the reference's

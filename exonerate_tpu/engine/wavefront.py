@@ -1,12 +1,12 @@
 """JAX anti-diagonal wavefront DP engine.
 
-The TPU-native replacement for the reference's generated-C Viterbi kernels
+The JAX replacement for the reference's generated-C Viterbi kernels
 (ref: src/c4/viterbi.c:869-1758): the model IR is *traced* into a jitted
 `lax.scan` over anti-diagonals d = i + j.  Within a diagonal every cell is
 independent (advancing transitions read earlier diagonals; silent (0,0)
 transitions are applied in the model's topologically-sorted order within the
-step), so each step is pure vector work over the query axis — VPU-friendly
-and batchable with `vmap` over padded sequence-pair batches.
+step), so each step is pure vector work over the query axis, batchable
+with `vmap` over padded sequence-pair batches.
 
 Parity: integer int32 scores, transition evaluation in model order with
 strictly-greater replacement (first max wins), end-cell preference
@@ -52,8 +52,7 @@ def _grid_key(model: Model, t) -> str:
 
 
 def prepare_inputs(model: Model, region: Region, data,
-                   subopt=None, pad_to=None,
-                   for_pallas: bool = False) -> tuple[dict[str, Any], tuple]:
+                   subopt=None, pad_to=None) -> tuple[dict[str, Any], tuple]:
     """Materialize per-pair arrays in compact forms: factored match calcs
     ship O(Q+T) index vectors + a small table; 1-D calcs ship vectors; only
     genuinely 2-D grids ship whole planes (skewed on device).  Returns
@@ -120,25 +119,6 @@ def prepare_inputs(model: Model, region: Region, data,
         if c.shadow_inputs_fn is not None:
             inputs[f"sh{model.calcs.index(c)}"] = c.shadow_inputs_fn(region,
                                                                      data)
-    if for_pallas:
-        # gather-free kernel data: shadow start vectors and per-calc
-        # kernel inputs (see model/phase.py packed split-codon lanes)
-        for ix, sh in enumerate(model.shadows):
-            if sh.start_vec_fn is not None:
-                assert sh.start == "target_pos", sh
-                inputs[f"shv{ix}"] = np.asarray(
-                    sh.start_vec_fn(region, data), np.int32)
-                kinds[f"shv{ix}"] = "tvec"
-        for ci, c in enumerate(model.calcs):
-            if c.kernel_inputs_fn is not None:
-                tr = next(t for t in model.transitions if t.calc is c)
-                si = np.clip(i_idx - tr.advance_query, 0, Q)
-                for nm, (kind, arr) in c.kernel_inputs_fn(region,
-                                                          data).items():
-                    key = f"kc{ci}:{nm}"
-                    kinds[key] = kind
-                    arr = np.asarray(arr, np.int32)
-                    inputs[key] = arr[si] if kind == "qvec" else arr
     inputs["_qstart"] = np.int32(region.query_start)
     inputs["_tstart"] = np.int32(region.target_start)
     inputs["_qlen"] = np.int32(Q)
@@ -206,26 +186,20 @@ def _scope_mask_end(scope: Scope, i, j, qlen, tlen):
     return (i == qlen) & (j == tlen)
 
 
-def _default_unroll() -> int:
-    """Diagonals folded per scan step: amortizes sequential-loop latency
-    on TPU; kept at 1 on CPU where it only slows compilation."""
-    try:
-        return 8 if jax.default_backend() == "tpu" else 1
-    except Exception:
-        return 1
-
-
 def build_wavefront(model: Model, Q: int, T: int, mode: str = "score",
                     kinds: tuple = (), unroll: int = 0):
-    if not unroll:
-        unroll = _default_unroll()
     """Trace the model into a jittable function of the prepared inputs.
 
     Returns fn(inputs) -> dict with 'score', 'query_end', 'target_end' and
     (mode == 'region') 'query_start', 'target_start'.  Cache per (model
     identity, Q, T, mode) — the analogue of the reference bootstrapper's
     compiled-function archive (ref: src/model/bootstrapper.c:412-428).
+    `unroll` diagonals fold into each scan step (0: the platform's
+    value, device.wavefront_unroll).
     """
+    if not unroll:
+        from .. import device
+        unroll = device.wavefront_unroll()
     assert not model.is_open
     want_region = mode in ("region", "path")
     want_path = mode == "path"
@@ -548,8 +522,7 @@ def _get_fn(model: Model, Q: int, T: int, mode: str, kinds: tuple):
 
 def _put(inputs, device=None):
     """Batched host->device transfer: one device_put for the whole pytree
-    (jit's per-leaf argument conversion costs one transfer round trip per
-    leaf, which dominates through remote-device tunnels)."""
+    (jit's per-leaf argument conversion costs one transfer per leaf)."""
     if device is None:
         return jax.device_put(inputs)
     return jax.device_put(inputs, device)
@@ -631,8 +604,8 @@ def _bucket_ladder(max_n: int = 1 << 24, step: int = 256,
     """Geometric ladder of padded lengths: each rung is at most `ratio`
     above the previous, so padding wastes <= ratio while the number of
     distinct compiled kernel shapes stays logarithmic (each fresh
-    (Qp, Tp) bucket costs a multi-minute Pallas compile — a linear
-    256-step grid causes a compile storm on real locus workloads)."""
+    (Qp, Tp) bucket costs a compile — a linear 256-step grid causes a
+    compile storm on real locus workloads)."""
     rungs = [step]
     while rungs[-1] < max_n:
         nxt = max(rungs[-1] + step,
@@ -664,7 +637,7 @@ def _get_batched_fn(model: Model, Qp: int, Tp: int, mode: str,
 def find_region_batched(model: Model, jobs: list,
                         subopt=None) -> list[DPResult]:
     """Score a batch of (region, data) pairs in bucketed, vmapped calls —
-    the TPU replacement for the reference's per-comparison thread pool
+    the batched replacement for the reference's per-comparison thread pool
     (ref: jobqueue.c; disabled in the fork for races, SURVEY.md §2.13).
     """
     out: list[DPResult] = [None] * len(jobs)

@@ -1,6 +1,6 @@
 """External-memory sequences: page-cached lazy residue access.
 
-TPU-native equivalent of the reference's EXTMEM sequence storage
+Equivalent of the reference's EXTMEM sequence storage
 (ref: src/sequence/sequence.h:36,111-114 Sequence_create_extmem and the
 SparseCache page store, src/general/sparsecache.{h,c}): a Sequence whose
 residues are materialized on demand through a loader callback, with an

@@ -1,6 +1,6 @@
 """Analysis: the top-level comparison driver.
 
-TPU-native equivalent of the reference Analysis (ref: src/hub/analysis.c):
+Equivalent of the reference Analysis (ref: src/hub/analysis.c):
 guesses/forces alphabet types, builds the model + GAM, expands FOSN lists,
 runs the seeded pipeline (default) or the exhaustive pair loop, handles
 strand expansion (revcomp query/target passes, ref: fastapipe.c:41-51) and
@@ -109,7 +109,6 @@ class Analysis:
         self.gam.geneseed_threshold = self.hsp_args.geneseed_threshold
         self._pool = None
         self._pending = None
-        self._locus_pending: list = []
         self._sdp_pending: list = []
         if self.aas.cores > 1:
             import jax
@@ -204,7 +203,6 @@ class Analysis:
             self._drain(block=True)
             while self._pending:
                 self.gam.submit(self._pending.popleft().result())
-        self._flush_locus_pool()
         self._flush_sdp_pool()
         self.gam.report()
 
@@ -418,19 +416,7 @@ class Analysis:
                 and comparison.target.strand != "-"
                 and not self.translate_both):
             self._comparison_revcomp(comparison)
-        import os
         gapped = registry.is_gapped(self.gas.model_type)
-        if gapped and self._pool is None \
-                and self.gas.use_gapped_extension \
-                and os.environ.get("EXONERATE_TPU_HEURISTIC") == "locus":
-            from ..engine import optimal
-            if optimal._use_pallas_prescan():
-                # pooled locus mode: defer so every comparison's loci
-                # share each generation's kernel batches; flushed by
-                # _flush_locus_pool at the end of the scan (same
-                # comparison completion order -> same output bytes)
-                self._locus_pending.append(comparison)
-                return
         if gapped and self._pool is None \
                 and self.gas.use_gapped_extension \
                 and not self.aas.use_bigseq \
@@ -450,13 +436,6 @@ class Analysis:
                         >= self.aas.cores * 4)
         else:
             self.gam.submit(fn(comparison))
-
-    def _flush_locus_pool(self):
-        if not self._locus_pending:
-            return
-        pending, self._locus_pending = self._locus_pending, []
-        for results in self.gam.result_heuristic_pooled(pending):
-            self.gam.submit(results)
 
     def _flush_sdp_pool(self):
         if not self._sdp_pending:

@@ -271,8 +271,6 @@ class HeuristicBound:
             c.shadow_fn = None
             c.shadow_inputs_fn = None
             c.factored_fn = None
-            c.pallas_fn = None
-            c.kernel_inputs_fn = None
             c.max_score_fn = None
             c.max_score = v
         bm.shadows = []

@@ -1,6 +1,6 @@
 """GAM: the gapped alignment manager / result machinery.
 
-TPU-native equivalent of the reference GAM (ref: src/hub/gam.{h,c}): owns
+Equivalent of the reference GAM (ref: src/hub/gam.{h,c}): owns
 the model and engines, converts comparisons into alignments (ungapped
 shortcut, heuristic DP, exhaustive suboptimal enumeration), applies
 score/percent/bestn thresholds and dispatches every enabled output format.
@@ -229,10 +229,9 @@ class GAM:
                          ) -> list[tuple[Alignment, AlignData]]:
         """Heuristic gapped path (ref: GAM_Result_heuristic_create,
         gam.c:1107-1180): seeded DP with reference-exact semantics
-        (ref: GAM_Result_SDP_create, gam.c:852-888).  The batched
-        locus-kernel fast path (pre-SDP design) remains available via
-        EXONERATE_TPU_HEURISTIC=locus until the SDP recurrence runs on
-        the fused kernel."""
+        (ref: GAM_Result_SDP_create, gam.c:852-888).  The locus-region
+        heuristic (pre-SDP design, not byte-parity) remains available
+        via EXONERATE_TPU_HEURISTIC=locus."""
         import os
         from ..engine.subopt import SubOpt
         from ..engine.sdp import SDPPair, SdpArgs
@@ -269,38 +268,17 @@ class GAM:
 
     def sdp_device_active(self) -> bool:
         """True when the default heuristic should run its SDP passes on
-        the device and the model is device-expressible.
-
-        DEFAULT ON TPU for models the fused Pallas band-scan kernel
-        serves (engine/sdp_pallas.py): the 16x1Mb est2genome scan runs
-        7.6 s warm through the kernel vs 11.2 s host native and 18.1 s
-        single-core C (BASELINE.md round 3).  EXONERATE_TPU_SDP=device
-        forces it everywhere (CPU XLA scan included);
-        =native / =python force the host engines."""
-        import os
+        the device and the model is device-expressible: by default
+        whenever an accelerator is attached (device.sdp_tier), with the
+        band scans batched through the XLA tier (engine/sdp_device.py).
+        EXONERATE_TPU_SDP=device forces it everywhere (the CPU XLA scan
+        included); =native / =python force the host engines."""
+        from .. import device
         from ..engine import sdp_hybrid
-        from ..engine.sdp import SdpArgs, model_uses_boundary
-        env = os.environ.get("EXONERATE_TPU_SDP", "")
-        if env in ("native", "python"):
+        from ..engine.sdp import SdpArgs
+        if device.sdp_tier() != "device":
             return False
         args = SdpArgs(self.gas.extension_threshold, self.gas.single_pass)
-        if env == "device":
-            return sdp_hybrid.eligible(self.model, args, None)
-        # default: only when a real TPU will run the fused kernel — the
-        # XLA lax.scan tier is slower than host native at scan scale
-        try:
-            import jax
-            if jax.default_backend() != "tpu":
-                return False
-        except Exception:
-            return False
-        from ..engine import sdp_pallas, sdp_rows
-        rows_on = os.environ.get("EXONERATE_TPU_SDP_ROWS", "") in \
-            ("1", "all")
-        if not (sdp_pallas.kernel_supported(
-                    self.model, model_uses_boundary(self.model), 1)
-                or (rows_on and sdp_rows.supported(self.model))):
-            return False
         return sdp_hybrid.eligible(self.model, args, None)
 
     def run_sdp_pool(self, comparisons: list):
@@ -487,8 +465,8 @@ class GAM:
             hs.hsps = keep
 
     def _make_sdp_pair(self, comparison, data):
-        """Default SDP executor: the device-hybrid pair when a TPU is
-        attached (or EXONERATE_TPU_SDP=device forces it), else the host
+        """Default SDP executor: the device-hybrid pair when the device
+        tier serves this model (see sdp_device_active), else the host
         pair (native C++ scheduler)."""
         import os
         from ..engine.subopt import SubOpt
@@ -529,24 +507,12 @@ class GAM:
                 break
         return out
 
-    def _scan_mesh(self):
-        """A 1-D data-parallel mesh over the local devices when more
-        than one is attached (the pod-scale locus scheduler); None on a
-        single chip."""
-        import jax
-        devs = jax.devices()
-        if len(devs) < 2:
-            return None
-        from jax.sharding import Mesh
-        import numpy as _np
-        return Mesh(_np.asarray(devs), ("dp",))
-
     def _result_heuristic_locus(self, comparison: Comparison,
                                 data: AlignData
                                 ) -> list[tuple[Alignment, AlignData]]:
-        """Batched locus-region fallback (dense kernel Waterman-Eggert;
-        not byte-parity with the reference SDP — kept for throughput
-        until the SDP recurrence is kernelized)."""
+        """Locus-region heuristic: exhaustive Waterman-Eggert over each
+        clustered locus (optimal.find_path); not byte-parity with the
+        reference SDP (whether it stays is open in ROADMAP.md)."""
         from ..engine.subopt import SubOpt
         from ..engine import optimal
         from .heuristic import cluster_hsps, cluster_regions
@@ -566,76 +532,15 @@ class GAM:
         if self.model.is_local:
             threshold = max(threshold, 1)
         subopt = SubOpt() if self.gas.use_subopt else None
-        # on TPU (and without --cores device round-robin), run the
-        # generation-based batched Waterman-Eggert: every live locus's
-        # masked scan + path DP per generation in single kernel batches
-        if regions and optimal._use_pallas_prescan() \
-                and not self.devices:
-            return self._locus_pool_run([dict(data=data, query=query,
-                                              regions=regions,
-                                              subopt=subopt)])[0]
-        # on TPU, pre-scan ALL cluster regions in one fused-kernel batch
-        # and drop sub-threshold loci before any path DP (the batched
-        # analogue of the reference's per-job SDP start/end scheduling,
-        # ref: sdp.c:299-356)
-        first_paths: dict[int, tuple[Region, object]] = {}
-        if len(regions) > 1 and optimal._use_pallas_prescan():
-            from ..engine import pallas_wavefront
-            jobs = [(r, data) for r in regions]
-            mesh = self._scan_mesh()
-            if mesh is not None and len(jobs) >= len(mesh.devices):
-                # pod-scale pair scheduler: locus scans data-parallel
-                # over every chip before any path DP
-                scans = pallas_wavefront.find_batched_sharded(
-                    self.model, jobs, mesh, "region",
-                    interpret=optimal._PRESCAN_INTERPRET)
-            else:
-                scans = pallas_wavefront.find_batched(
-                    self.model, jobs, "region",
-                    interpret=optimal._PRESCAN_INTERPRET)
-            # filter only: the full locus region must survive for the
-            # Waterman-Eggert subopt re-runs; find_path shrinks each
-            # iteration itself (mask-aware)
-            survivors, subs = [], []
-            for r, scan in zip(regions, scans):
-                if scan.score < threshold:
-                    continue
-                survivors.append(r)
-                subs.append(Region(r.query_start + scan.query_start,
-                                   r.target_start + scan.target_start,
-                                   scan.query_end - scan.query_start,
-                                   scan.target_end - scan.target_start))
-            regions = survivors
-            # batch EVERY locus's first path DP in one fused-kernel call
-            # (the per-locus subopt loop below reuses it while its locus
-            # is still mask-free); skipped under --cores round-robin
-            if len(regions) > 1 and not self.devices:
-                paths = pallas_wavefront.find_path_batched(
-                    self.model, [(s, data) for s in subs],
-                    interpret=optimal._PRESCAN_INTERPRET)
-                for r, s, p in zip(regions, subs, paths):
-                    if p is not None:
-                        first_paths[id(r)] = (s, p)
         out = []
         for region in regions:
             device = None
             if self.devices:
                 device = self.devices[self._dev_rr % len(self.devices)]
                 self._dev_rr += 1
-            first = first_paths.pop(id(region), None)
             while True:
-                if first is not None and \
-                        (subopt is None
-                         or not subopt.overlaps_region(region)):
-                    sub, res = first
-                    alignment = optimal._to_alignment(self.model, sub,
-                                                      res)
-                    first = None
-                else:
-                    first = None
-                    alignment = optimal.find_path(self.model, region,
-                                                  data, subopt=subopt,
-                                                  device=device)
+                alignment = optimal.find_path(self.model, region, data,
+                                              subopt=subopt, device=device)
                 if alignment is None or alignment.score < threshold:
                     break
                 out.append((alignment, data))
@@ -647,133 +552,6 @@ class GAM:
                     break
         out.sort(key=lambda ad: -ad[0].score)
         return out
-
-    def _locus_group(self, comparison: Comparison) -> Optional[dict]:
-        """Locus jobs for one comparison: clustered + geneseed-filtered
-        cluster regions, a fresh per-comparison SubOpt, and the data
-        bundle (the prologue of the locus heuristic)."""
-        from ..engine.subopt import SubOpt
-        from .heuristic import cluster_hsps, cluster_regions
-        if not comparison.has_hsps:
-            return None
-        query, target = comparison.query, comparison.target
-        data = self.make_data(query, target)
-        genomic = has_genomic_target(self.gas.model_type)
-        t_join = (data.intron.max_intron if genomic
-                  else max(data.ner.max_ner, 10000))
-        clusters = cluster_hsps(comparison, t_join, 10000)
-        if self.geneseed_threshold:
-            clusters = [c for c in clusters
-                        if c.score >= self.geneseed_threshold]
-        regions = cluster_regions(comparison, clusters,
-                                  target_margin=1000, query_margin=1000)
-        if not regions:
-            return None
-        return dict(data=data, query=query, regions=regions,
-                    subopt=SubOpt() if self.gas.use_subopt else None)
-
-    def result_heuristic_pooled(self, comparisons: list
-                                ) -> list[list]:
-        """Locus heuristic over MANY comparisons at once: all loci of
-        all pending comparisons share each generation's kernel batches
-        (the analysis layer defers locus-mode comparisons and flushes
-        them through here so batch sizes reflect the whole scan, not
-        one query)."""
-        outs_all: list[list] = [[] for _ in comparisons]
-        groups, idx = [], []
-        for ci, comparison in enumerate(comparisons):
-            grp = self._locus_group(comparison)
-            if grp is not None:
-                groups.append(grp)
-                idx.append(ci)
-        if groups:
-            for ci, o in zip(idx, self._locus_pool_run(groups)):
-                outs_all[ci] = o
-        return outs_all
-
-    def _locus_pool_run(self, groups: list) -> list[list]:
-        """Generation-based batched Waterman-Eggert over every locus of
-        every group: each generation runs ONE masked region-scan batch
-        and ONE masked path-DP batch.  Masks are per-pair DATA (packed
-        bit planes skewed on device), so a single compiled kernel per
-        bucket shape serves all loci, comparisons, and generations —
-        per-locus sequential subopt loops paid a kernel variant (or a
-        ~25 s XLA detour) per lone call instead.  Each comparison keeps
-        its own SubOpt; a comparison stops (reference stop rule, ref:
-        GAM_Result_is_full, gam.c:779-793) when bestn is reached and
-        the score strictly dropped."""
-        from ..engine import optimal, pallas_wavefront
-        outs: list[list] = [[] for _ in groups]
-
-        def full(g: int) -> bool:
-            o = outs[g]
-            return bool(self.gas.best_n and len(o) >= self.gas.best_n
-                        and len(o) > 1
-                        and o[-2][0].score != o[-1][0].score)
-
-        def thr(g: int) -> int:
-            t = self.query_threshold(groups[g]["query"],
-                                     groups[g]["data"])
-            return max(t, 1) if self.model.is_local else t
-
-        live = [(g, r) for g, grp in enumerate(groups)
-                for r in grp["regions"]]
-        gen = 0
-        while live and gen < 256:       # runaway guard
-            jobs = [(r, groups[g]["data"]) for g, r in live]
-            subs = [groups[g]["subopt"] for g, _r in live]
-            mesh = self._scan_mesh()
-            if gen == 0 and mesh is not None \
-                    and len(jobs) >= len(mesh.devices):
-                # pod-scale pair scheduler for the mask-free first scan
-                scans = pallas_wavefront.find_batched_sharded(
-                    self.model, jobs, mesh, "region",
-                    interpret=optimal._PRESCAN_INTERPRET)
-            else:
-                scans = pallas_wavefront.find_batched(
-                    self.model, jobs, "region", subopt=subs,
-                    interpret=optimal._PRESCAN_INTERPRET)
-            kept, boxes = [], []
-            for (g, r), scan in zip(live, scans):
-                if full(g) or scan.score < thr(g):
-                    continue
-                kept.append((g, r))
-                boxes.append(Region(r.query_start + scan.query_start,
-                                    r.target_start + scan.target_start,
-                                    scan.query_end - scan.query_start,
-                                    scan.target_end - scan.target_start))
-            if not kept:
-                break
-            paths = pallas_wavefront.find_path_batched(
-                self.model,
-                [(b, groups[g]["data"]) for (g, _r), b in zip(kept,
-                                                              boxes)],
-                subopt=[groups[g]["subopt"] for g, _r in kept],
-                interpret=optimal._PRESCAN_INTERPRET)
-            live = []
-            for (g, r), box, res in zip(kept, boxes, paths):
-                if full(g):
-                    continue
-                grp = groups[g]
-                if res is not None:
-                    alignment = optimal._to_alignment(self.model, box,
-                                                      res)
-                else:   # kernel couldn't serve the job: lone fallback
-                    alignment = optimal.find_path(self.model, r,
-                                                  grp["data"],
-                                                  subopt=grp["subopt"])
-                if alignment is None or alignment.score < thr(g):
-                    continue
-                outs[g].append((alignment, grp["data"]))
-                if grp["subopt"] is None or not self.model.is_local:
-                    continue
-                grp["subopt"].add_alignment(alignment)
-                if not full(g):
-                    live.append((g, r))
-            gen += 1
-        for o in outs:
-            o.sort(key=lambda ad: -ad[0].score)
-        return outs
 
     def _find_portal(self, hspset):
         """First portal whose advances match the HSP class

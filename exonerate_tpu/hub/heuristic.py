@@ -1,6 +1,6 @@
 """Heuristic gapped alignment: seeded region DP.
 
-The TPU-native counterpart of the reference's SDP pipeline
+The counterpart of the reference's SDP pipeline
 (ref: src/sdp/sdp.{h,c}, scheduler.{h,c}): instead of a pointer-sparse
 cell wavefront, HSP seeds are clustered into gene-locus regions (HSPs
 reachable within intron/join range — the same geometry the reference's

@@ -58,7 +58,7 @@ class NerArgs:
 
 
 class SpliceCache:
-    """Per-sequence cached splice-site int score arrays — the TPU-friendly
+    """Per-sequence cached splice-site int score arrays — the device-friendly
     replacement for the reference's SplicePrediction SparseCache pages
     (ref: src/sequence/splice.h:54-139)."""
 

@@ -1,15 +1,15 @@
 """The alignment-model IR: declarative weighted finite-state automata.
 
-TPU-native equivalent of the reference C4 DSL (ref: src/c4/c4.{h,c}).
+Equivalent of the reference C4 DSL (ref: src/c4/c4.{h,c}).
 A Model is a graph of states and transitions; every transition advances the
 query/target by 0..3 symbols, carries a label (MATCH/GAP/INTRON/...) and an
 optional Calc. Where the reference's Calc is a C callback plus a codegen macro
 string, ours is a *grid provider*: a function that materializes the
 transition's scores for a whole region as an int32 array (constant, per-row,
 per-column or full 2-D), which is what lets the generic engines below run the
-same model as vectorized NumPy, as a jitted JAX wavefront, or as a Pallas
-kernel — the IR plays the role of the reference's model description and the
-engines play the role of its interpreter/codegen pair.
+same model as vectorized NumPy, as a jitted JAX wavefront, or in the
+native C++ engines — the IR plays the role of the reference's model
+description and the engines play the role of its interpreter/codegen pair.
 
 Graph ops (make_stereo, insert, derive) and the closing topological sort
 reproduce the reference semantics exactly (ref: src/c4/c4.c:681-770,
@@ -116,12 +116,6 @@ class Calc:
     factored_fn: Optional[Callable] = None
     protect: Protect = Protect.NONE
     id: int = -1
-    # gather-free formulation for the fused Pallas kernel: pallas_fn(ctx)
-    # computes the transition score from shadow lanes + kernel inputs
-    # (ctx.lane / ctx.tslice / ctx.qvec / ctx.xp); kernel_inputs_fn
-    # returns {name: ("qvec"|"tvec", np.ndarray)} region-local vectors
-    pallas_fn: Optional[Callable] = None
-    kernel_inputs_fn: Optional[Callable] = None
     max_score_fn: Optional[Callable] = None
     # native-engine descriptor for shadow-dependent calcs: a
     # (kind, params) tag the C++ scheduler understands
@@ -274,7 +268,6 @@ def model_fingerprint(model: "Model") -> tuple:
                t.label.value, bool(t.is_silent))
               for t in model.transitions),
         tuple((c.name, c.protect.value, _fn_key(c.shadow_fn),
-               _fn_key(c.pallas_fn), _fn_key(c.kernel_inputs_fn),
                c.factored_fn is not None, c.qt_fn is not None)
               for c in model.calcs),
         tuple((sp.span_state.id, sp.min_query, sp.max_query,
@@ -323,12 +316,10 @@ class Model:
 
     def add_calc(self, name, max_score=0, grid_fn=None, shadow_fn=None,
                  shadow_inputs_fn=None, factored_fn=None,
-                 protect=Protect.NONE, pallas_fn=None,
-                 kernel_inputs_fn=None, max_score_fn=None) -> Calc:
+                 protect=Protect.NONE, max_score_fn=None) -> Calc:
         assert self.is_open
         c = Calc(name, max_score, grid_fn, shadow_fn, shadow_inputs_fn,
                  factored_fn, protect,
-                 pallas_fn=pallas_fn, kernel_inputs_fn=kernel_inputs_fn,
                  max_score_fn=max_score_fn)
         self.calcs.append(c)
         return c
@@ -646,7 +637,6 @@ class Model:
                 existing = self.add_calc(c.name, c.max_score, c.grid_fn,
                                          c.shadow_fn, c.shadow_inputs_fn,
                                          c.factored_fn, c.protect,
-                                         c.pallas_fn, c.kernel_inputs_fn,
                                          c.max_score_fn)
                 existing.native_shadow = c.native_shadow
                 existing.qt_fn = c.qt_fn
@@ -690,7 +680,6 @@ class Model:
             calc_map[id(c)] = m.add_calc(c.name, c.max_score, c.grid_fn,
                                          c.shadow_fn, c.shadow_inputs_fn,
                                          c.factored_fn, c.protect,
-                                         c.pallas_fn, c.kernel_inputs_fn,
                                          c.max_score_fn)
             calc_map[id(c)].native_shadow = c.native_shadow
             calc_map[id(c)].qt_fn = c.qt_fn
@@ -822,7 +811,7 @@ class DerivedModel:
                 calc_map[id(c)] = m.add_calc(
                     c.name, c.max_score, c.grid_fn, c.shadow_fn,
                     c.shadow_inputs_fn, c.factored_fn, c.protect,
-                    c.pallas_fn, c.kernel_inputs_fn, c.max_score_fn)
+                    c.max_score_fn)
                 calc_map[id(c)].native_shadow = c.native_shadow
                 calc_map[id(c)].qt_fn = c.qt_fn
             return calc_map[id(c)]

@@ -1,6 +1,6 @@
 """Symbol-comparison machinery (Match types).
 
-TPU-native equivalent of the reference Match module
+Equivalent of the reference Match module
 (ref: src/comparison/match.{h,c}).  A Match knows its per-side advances and
 produces the *whole score grid* for a region in one vectorized gather
 (submat double-gather, with on-the-fly codon translation for translated

@@ -15,7 +15,7 @@ import numpy as np
 from ..alphabet import AlphabetType
 from ..submat import SYMBOL_INDEX
 from ..translate import NT4
-from .ir import IMPOSSIBLY_LOW_SCORE, Label, Model, Shadow
+from .ir import IMPOSSIBLY_LOW_SCORE, Label, Model
 from .match import Match, MatchType
 from .data import AlignData
 from .intron import intron_create, _shadow_value
@@ -56,42 +56,6 @@ def _seq_cache(data: AlignData):
         }
         data._phase_cache = cache
     return cache
-
-
-_TVEC_MEMO: dict = {}
-_TVEC_CAP = 64
-
-
-def _code_key(data: AlignData) -> int:
-    """Stable identity for the genetic code (rebuilt per CLI run)."""
-    code = data.mas.translate
-    k = getattr(code, "_memo_key", None)
-    if k is None:
-        k = hash(code.trans.tobytes())
-        try:
-            code._memo_key = k
-        except Exception:
-            pass
-    return k
-
-
-def _tvec_memo(seq, key, builder):
-    """Memoize target-side derived vectors per (sequence content,
-    region, variant): a genome scan re-derives identical 1 Mb-wide
-    packed codon/class vectors for every query and pass against the
-    same target (the round-4 p2g profile showed ~3.4 s of a 6.9 s scan
-    in these builders), and warm runs re-derive them per invocation
-    under id() keys.  Entries are treated as read-only."""
-    from ..seqio import seq_ckey
-    mkey = (seq_ckey(seq),) + key
-    hit = _TVEC_MEMO.get(mkey)
-    if hit is not None:
-        return hit
-    out = builder()
-    if len(_TVEC_MEMO) > _TVEC_CAP:
-        _TVEC_MEMO.clear()
-    _TVEC_MEMO[mkey] = out
-    return out
 
 
 def _codon_index(xp, nt4_arr, trans_idx, p1, p2, p3, n):
@@ -156,175 +120,6 @@ def _make_split_shadow_fn(match_type: MatchType, phase: int,
         return xp.where(valid, score, IMPOSSIBLY_LOW_SCORE)
 
     return shadow_fn
-
-
-# -- gather-free kernel form (fused Pallas engine) -------------------------
-#
-# The split-codon score is psub[qi, trans_idx[packed codon]] where one or
-# two codon bases come from the intron START position (a shadow lane).
-# In-kernel gathers are unavailable on TPU, so the data is re-laid-out:
-# - phase 1 (1 tail base c1 = nt4[start-1], 2 exit bases): exit vectors
-#   E1p_k[j] pack, 6 x 5-bit amino-acid indices per int32, the translated
-#   codon for every possible tail class c given exit bases (t[j], t[j+1]);
-#   the kernel selects by the c1 LANE value and unpacks with a dynamic
-#   shift — no gather.
-# - phase 2 (2 tail bases, 1 exit base e = nt4[t[j]]): the amino acid for
-#   every possible exit class e is packed AT INTRON START into 3 lane
-#   values P_k (start_vec_fn shadows); the kernel selects by e and
-#   unpacks.
-# - the query side of the pair score psub[qi, aa] is static per source
-#   position: 25 "R" vectors R_a[i] = psub[qi(i), a]; the kernel selects
-#   by aa.  Query-side phase validity (qpos >= phase) is baked into R.
-
-def _shifted(nt: np.ndarray, t0: int, count: int, shift: int
-             ) -> np.ndarray:
-    """nt[clip(t0+arange(count)+shift, 0, n-1)] via slicing (a clip +
-    fancy-gather over a 1 Mb vector costs ~17 ms; this is ~50x
-    cheaper)."""
-    n = nt.shape[0]
-    lo = t0 + shift
-    out = np.empty(count, np.int32)
-    head = min(max(-lo, 0), count)
-    if head:
-        out[:head] = nt[0]
-    src_lo = lo + head
-    src_hi = min(src_lo + (count - head), n)
-    mid = max(src_hi - src_lo, 0)
-    if mid:
-        out[head:head + mid] = nt[src_lo:src_hi]
-    if head + mid < count:
-        out[head + mid:] = nt[n - 1]
-    return out
-
-
-def _c1_vec(region, data: AlignData):
-    """Lane value at intron start: nt4 class of the exon tail base."""
-    def build():
-        cache = _seq_cache(data)
-        return _shifted(cache["t_nt4"], region.target_start,
-                        region.target_length + 1, -1)
-    return _tvec_memo(data.target,
-                      ("c1", region.target_start,
-                       region.target_length), build)
-
-
-def _p2k_vec(k: int):
-    """Lane value at intron start: packed amino-acid indices of the
-    2-tail-base codon completed by each possible exit class e=6k..6k+5."""
-    def vec_fn(region, data: AlignData):
-        def build():
-            cache = _seq_cache(data)
-            nt, ti = cache["t_nt4"], cache["trans_idx"]
-            n = nt.shape[0]
-            j = region.target_start + np.arange(region.target_length
-                                                + 1)
-            b1 = _shifted(nt, region.target_start,
-                          region.target_length + 1, -2)
-            b2 = _shifted(nt, region.target_start,
-                          region.target_length + 1, -1)
-            base = b1 | (b2 << 4)
-            # 256-entry packed table: one region-length gather total
-            x = np.arange(256, dtype=np.int32)
-            tab = np.zeros(256, np.int32)
-            for m in range(6):
-                e = 6 * k + m
-                if e < 16:
-                    tab |= ti[x | (e << 8)].astype(np.int32) << (5 * m)
-            return tab[base]
-        return _tvec_memo(data.target,
-                          ("p2k", k, region.target_start,
-                           region.target_length, _code_key(data)),
-                          build)
-    return vec_fn
-
-
-def _make_split_kernel_inputs(match_type: MatchType, phase: int):
-    def kernel_inputs_fn(region, data: AlignData):
-        cache = _seq_cache(data)
-        psub = data.mas.protein_submat.matrix
-        ti = cache["trans_idx"]
-        T, Q = region.target_length, region.query_length
-        t0, q0 = region.target_start, region.query_start
-        nt = cache["t_nt4"]
-        n = nt.shape[0]
-        out = {}
-
-        def build_tside():
-            j = np.arange(T + 1)
-            ts = {}
-            if phase == 1:
-                b2 = _shifted(nt, t0, T + 1, 0)
-                b3 = _shifted(nt, t0, T + 1, 1)
-                # pack through a 256-entry (b2,b3)->packed-aa table:
-                # ONE genome-length gather per k instead of 16
-                b23 = b2 | (b3 << 4)
-                x = np.arange(256, dtype=np.int32)
-                for k in range(3):
-                    tab = np.zeros(256, np.int32)
-                    for m in range(6):
-                        c = 6 * k + m
-                        if c < 16:
-                            tab |= ti[c | (x << 4)].astype(np.int32) \
-                                << (5 * m)
-                    ts[f"E1p{k}"] = ("tvec", tab[b23])
-            else:
-                ts["N4"] = ("tvec", _shifted(nt, t0, T + 1, 0))
-            return ts
-
-        # target-side vectors depend only on (target, region t-span,
-        # phase, code) — shared across every query of a scan
-        out.update(_tvec_memo(data.target,
-                              ("ki", phase, t0, T, _code_key(data)),
-                              build_tside))
-        i = np.arange(Q + 1)
-        if match_type == MatchType.PROTEIN2DNA:
-            qs = cache["q_sym"]
-            qi = qs[np.clip(q0 + i, 0, qs.shape[0] - 1)]
-            qvalid = np.ones(Q + 1, bool)
-        else:                      # CODON2CODON (coding/cdna queries)
-            qn = cache["q_nt4"]
-            nq = qn.shape[0]
-            qpos = q0 + i
-            if phase == 1:
-                pp = (qpos - 1, qpos, qpos + 1)
-            else:
-                pp = (qpos - 2, qpos - 1, qpos)
-            packed = (qn[np.clip(pp[0], 0, nq - 1)].astype(np.int32)
-                      | qn[np.clip(pp[1], 0, nq - 1)].astype(np.int32) << 4
-                      | qn[np.clip(pp[2], 0, nq - 1)].astype(np.int32) << 8)
-            qi = ti[packed]
-            qvalid = qpos >= phase
-        for a in range(25):
-            r = psub[qi, a].astype(np.int32)
-            out[f"R{a}"] = ("qvec",
-                            np.where(qvalid, r, IMPOSSIBLY_LOW_SCORE))
-        return out
-    return kernel_inputs_fn
-
-
-def _make_split_pallas_fn(phase: int):
-    def pallas_fn(ctx):
-        xp = ctx.xp
-        tstart = ctx.lane("target intron")      # absolute start pos
-        valid = tstart >= phase
-        if phase == 1:
-            c1 = ctx.lane("split c1")
-            sub = xp.zeros_like(c1)
-            for k in range(3):
-                sub = xp.where((c1 // 6) == k, ctx.tslice(f"E1p{k}"), sub)
-            aa = (sub >> (5 * (c1 % 6))) & 31
-        else:
-            e = ctx.tslice("N4")
-            sub = xp.zeros_like(e)
-            for k in range(3):
-                sub = xp.where((e // 6) == k,
-                               ctx.lane(f"split p2k{k}"), sub)
-            aa = (sub >> (5 * (e % 6))) & 31
-        score = xp.zeros_like(aa)
-        for a in range(25):
-            score = xp.where(aa == a, ctx.qvec(f"R{a}"), score)
-        return xp.where(valid, score, IMPOSSIBLY_LOW_SCORE)
-    return pallas_fn
 
 
 def _phase_shadow_inputs(region, data: AlignData):
@@ -419,28 +214,6 @@ def phase_create(suffix, match: Match, on_query: bool, on_target: bool,
         assert len(m.shadows) == 3
         m.shadows[1].dst_transitions.append(p1post_t)
         m.shadows[2].dst_transitions.append(p2post_t)
-        if on_target:
-            # gather-free kernel form: packed split-codon lanes + exit
-            # vectors (consumed only by the fused Pallas engine; the
-            # shadow_fn path above stays authoritative for np/XLA)
-            sh12, sh21 = m.shadows[1], m.shadows[2]
-            m.shadows.append(Shadow(
-                f"split c1 {full_suffix}",
-                src_states=list(sh12.src_states),
-                dst_transitions=[p1post_t], start="target_pos",
-                start_vec_fn=_c1_vec))
-            for k in range(3):
-                m.shadows.append(Shadow(
-                    f"split p2k{k} {full_suffix}",
-                    src_states=list(sh21.src_states),
-                    dst_transitions=[p2post_t], start="target_pos",
-                    start_vec_fn=_p2k_vec(k)))
-            phase1_calc.pallas_fn = _make_split_pallas_fn(1)
-            phase1_calc.kernel_inputs_fn = _make_split_kernel_inputs(
-                match.type, 1)
-            phase2_calc.pallas_fn = _make_split_pallas_fn(2)
-            phase2_calc.kernel_inputs_fn = _make_split_kernel_inputs(
-                match.type, 2)
     # closed before insertion, like the reference (ref: phase.c:544) —
     # see the ordering note in intron.intron_create
     m.close()

@@ -3,8 +3,8 @@
 The reference's verbosity discipline (`Argument_info`, g_message traces
 gated by -V, ref: src/hub/analysis.c:172-174) extended with what a
 multi-engine runtime needs: every DP records which engine computed it
-('pallas', 'xla', 'native', 'oracle'), fallback decisions are logged at
--V 2+ with the reason, and a per-run engine summary prints at exit at
+('sdp-device', 'xla', 'native', 'oracle', ...), fallback decisions are
+logged at -V 2+ with the reason, and a per-run engine summary prints at exit at
 -V 1+ so a user can always tell which engine produced a result and why
 a run got slower (VERDICT round 1, weak #6).
 """

@@ -1,14 +1,16 @@
-"""Multi-host (DCN) sharding driver.
+"""Multi-process sharding driver.
 
 The reference scales across a cluster by chunking databases with
 --querychunkid/--querychunktotal/--targetchunkid/--targetchunktotal and
 concatenating per-job outputs externally (ref: doc/man/man1/exonerate.1
 :177-204, src/database/fastadb.h:72-73, src/program/exonerate.c:62-73).
 This driver makes that recipe first-class for a JAX multi-process job:
-every host launches the same command with --multihost query|target, the
-driver assigns each process its chunk on that axis, runs the analysis
-locally (TPU pair batches, native engines — identical to a single-host
-chunk run), and merges results over DCN with one uint8 all-gather:
+every process launches the same command with --multihost query|target
+(and --coordinator/--processcount/--processid, which join the job:
+nothing detects a cluster on its own), the driver assigns each process
+its chunk on that axis, runs the analysis locally (device band scans,
+native engines — identical to a single-process chunk run), and merges
+results with one uint8 all-gather across processes:
 
 - per-query bestn stores merge with GAM's exact admit/evict/tie rules,
   submission order extended chunk-major (chunks partition the stream in
@@ -16,9 +18,9 @@ chunk run), and merges results over DCN with one uint8 all-gather:
 - non-bestn output concatenates chunk-major (the reference's external
   concat, done for the user).
 
-Host 0 prints the merged report; other hosts print nothing.  With
+Process 0 prints the merged report; the others print nothing.  With
 --multihost query and bestn, or any --multihost target run, the output
-is byte-identical to the same single-host command.
+is byte-identical to the same single-process command.
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ def merge_chunk_reports(reports: list[ChunkReport], best_n: int) -> str:
 
 
 def _allgather_bytes(data: bytes) -> list[bytes]:
-    """All-gather one byte blob per process over DCN (identity when
+    """All-gather one byte blob per process (identity when
     single-process)."""
     import jax
     if jax.process_count() == 1:
@@ -96,8 +98,8 @@ def _allgather_bytes(data: bytes) -> list[bytes]:
 
 
 def run_multihost(v: dict, axis: str, out) -> None:
-    """Drive one process's share of a multi-host run and print the
-    merged report on host 0.  ``v`` is the parsed CLI value dict."""
+    """Drive one process's share of a multi-process run and print the
+    merged report on process 0.  ``v`` is the parsed CLI value dict."""
     import io
 
     import jax
@@ -105,6 +107,10 @@ def run_multihost(v: dict, axis: str, out) -> None:
     from ..cli.exonerate import make_analysis
 
     assert axis in ("query", "target"), axis
+    if v["coordinator"] != "NULL":
+        jax.distributed.initialize(coordinator_address=v["coordinator"],
+                                   num_processes=v["processcount"],
+                                   process_id=v["processid"])
     P = jax.process_count()
     p = jax.process_index()
     if v[f"{axis}chunktotal"]:

@@ -1,6 +1,6 @@
 """Multi-chip ungapped genome scanning.
 
-The TPU-native reformulation of exonerate's ungapped model at scale: the
+A reformulation of exonerate's ungapped model at scale: the
 best ungapped local alignment on each diagonal is a *maximum-subarray*
 problem over that diagonal's match scores, and max-subarray combination is
 an associative monoid (sum, best-prefix, best-suffix, best).  That makes

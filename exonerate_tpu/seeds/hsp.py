@@ -1,6 +1,6 @@
 """HSPs: seeding, x-drop extension, sets.
 
-TPU-native equivalent of the reference HSPset module
+Equivalent of the reference HSPset module
 (ref: src/comparison/hspset.{h,c}).  The per-seed x-drop extension
 (ref: HSP_extend, hspset.c:748-815) is reformulated as vectorized prefix
 ops over the whole diagonal (cumsum + running max + first-failure scan),

@@ -1,6 +1,6 @@
 """Word seeding: multiplexed query word tables + target scans.
 
-TPU-native equivalent of the reference Seeder (ref: src/comparison/
+Equivalent of the reference Seeder (ref: src/comparison/
 seeder.{h,c}).  Where the reference streams target symbols through an
 FSM/VFSM trie, we use the VFSM arithmetic directly (a word is a base-N
 positional number, ref: src/struct/vfsm.h:73-86) over vectorized NumPy

@@ -1,6 +1,6 @@
 """Word neighbourhoods (BLAST-style).
 
-TPU-native equivalent of the reference WordHood
+Equivalent of the reference WordHood
 (ref: src/comparison/wordhood.{h,c}): all words within a substitution-score
 dropoff of a query word.  Created per match class only when the reference
 would (use_dropoff with wordlimit==0 disables it — so DNA seeding is

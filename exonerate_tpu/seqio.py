@@ -1,6 +1,6 @@
 """Sequence objects and FASTA IO.
 
-TPU-native equivalent of the reference Sequence/FastaDB layer
+Equivalent of the reference Sequence/FastaDB layer
 (ref: src/sequence/sequence.{h,c}, src/database/fastadb.{h,c}).  A Sequence
 holds its residues as a NumPy uint8 array (host-side; engines copy slices to
 device as needed) and supports the reference's lazy views — subseq, revcomp,

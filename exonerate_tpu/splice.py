@@ -1,11 +1,11 @@
 """Splice-site prediction (PSSM predictors).
 
-TPU-native equivalent of the reference Splice module
+Equivalent of the reference Splice module
 (ref: src/sequence/splice.{h,c}). Four predictors (5'/3' x forward/reverse)
 score every position of a sequence in one vectorized pass: the PSSM is applied
 as a sum of shifted gathers, then rounded to int (x1.5 log-odds, ref:
 src/sequence/splice.c:283-292). Scores feed the intron model as per-position
-int32 arrays — the TPU replacement for the reference's lazy SparseCache pages.
+int32 arrays — the array replacement for the reference's lazy SparseCache pages.
 
 PSSM data: Senapathy, Shapiro & Harris, Methods in Enzymology 183:252-278
 (same public source as the reference, src/sequence/splice.c:53-117).

@@ -1,6 +1,6 @@
 """Substitution matrices.
 
-TPU-native equivalent of the reference Submat module
+Equivalent of the reference Submat module
 (ref: src/sequence/submat.{h,c}). A Submat is a 25x25 int32 matrix (24 real
 rows in A R N D C Q E G H I L K M F P S T W Y V B Z X * order plus one
 catch-all row for unknown symbols) plus a 256-entry symbol->row index, so a

@@ -1,6 +1,6 @@
 """Genetic-code translation.
 
-TPU-native equivalent of the reference Translate module
+Equivalent of the reference Translate module
 (ref: src/sequence/translate.{h,c}). Nucleotides map to 4-bit IUPAC sets
 ("-GARTKWDCSMVYBHN" encoding: one bit per base, reversal == complement), and
 the 4096-entry codon->amino-acid table is precomputed so whole-sequence

@@ -6,18 +6,24 @@ and by tests/test_golden_parity.py (runs the exonerate_tpu CLIs on the
 same argv and compares normalized stdout byte-for-byte).
 
 Fixture inputs are synthesized deterministically into tests/golden/data/
-so both sides read identical files.
+so both sides read identical files; the reference test corpus (cDNAs and
+proteins) and the FOSN lists over it are rebuilt from the repo by
+benchmarks/fixtures.py into its generated-input directory.
 """
 from __future__ import annotations
 
 import os
 import re
+import sys
 
-DATA = "/root/reference/test/data"
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
+from benchmarks import fixtures  # noqa: E402
+
+DATA = os.path.join(fixtures.WORK, "corpus")
 CDNA = os.path.join(DATA, "cdna")
 PROT = os.path.join(DATA, "protein")
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(HERE, "data")
 OUTDIR = os.path.join(HERE, "out")
 
@@ -34,11 +40,10 @@ def make_fixtures(dirpath: str = FIXDIR) -> None:
     annotation, ipcress experiments, softmasked query)."""
     import numpy as np
     os.makedirs(dirpath, exist_ok=True)
+    fixtures.corpus_dir()
     rng = np.random.default_rng(11)
 
-    calm = None
-    with open(os.path.join(CDNA, "calm.human.dna.fasta")) as f:
-        calm = "".join(ln.strip() for ln in f if not ln.startswith(">"))
+    calm = fixtures.calm_cdna()
     cdna = calm[:1200].upper()
 
     # genome.fa: three exons of the calm cDNA separated by GT..AG introns
@@ -89,10 +94,12 @@ def make_fixtures(dirpath: str = FIXDIR) -> None:
                  [("n2", blockA + link2 + blockB)])
 
     # annotation file for cdna2genome: CDS from 61, length 900 (+ strand)
-    with open(os.path.join(dirpath, "annot.txt"), "w") as f:
-        f.write("qmut + 61 900\n")
-    with open(os.path.join(dirpath, "annot_minus.txt"), "w") as f:
-        f.write("qmut - 61 900\n")
+    fixtures.write_atomic(
+        os.path.join(dirpath, "annot.txt"),
+        "qmut + 61 900\n")
+    fixtures.write_atomic(
+        os.path.join(dirpath, "annot_minus.txt"),
+        "qmut - 61 900\n")
 
     # small spliced target for exhaustive est2genome (one intron)
     small = (bg2 := "".join(rng.choice(list("acgt"), 300).tolist())) \
@@ -117,32 +124,30 @@ def make_fixtures(dirpath: str = FIXDIR) -> None:
                  [("g2gt", genome_rc[8200:9100])])
 
     # ipcress experiment file (reference's own simple test case)
-    with open(os.path.join(dirpath, "test.ipcress"), "w") as f:
-        f.write("test_primer CGCGGACGCGCG GTATTTTATTGG 2000 2500\n")
+    fixtures.write_atomic(
+        os.path.join(dirpath, "test.ipcress"),
+        "test_primer CGCGGACGCGCG GTATTTTATTGG 2000 2500\n")
 
-    # 4-sequence single file for byte-granular chunk cases
-    import shutil
-    with open(os.path.join(dirpath, "all4.fa"), "wb") as outf:
-        for nm in sorted(os.listdir(CDNA)):
-            if nm.endswith(".fasta"):
-                with open(os.path.join(CDNA, nm), "rb") as inf:
-                    shutil.copyfileobj(inf, outf)
+    # all4.fa (the 4-sequence single file for byte-granular chunk
+    # cases) is committed: it is the source the corpus is rebuilt from
 
-    # FOSN lists over the full reference test corpus
+    # FOSN lists (absolute paths, so generated beside the corpus)
     for fos, d in (("proteins.fosn", PROT), ("cdnas.fosn", CDNA)):
-        with open(os.path.join(dirpath, fos), "w") as f:
-            for nm in sorted(os.listdir(d)):
-                if nm.endswith(".fasta"):
-                    f.write(os.path.join(d, nm) + "\n")
-
+        fixtures.write_atomic(
+            os.path.join(DATA, fos),
+            "".join(os.path.join(d, nm) + "\n"
+                    for nm in sorted(os.listdir(d))
+                    if nm.endswith(".fasta")))
     # FOSN: file-of-sequence-names listing two query files
-    with open(os.path.join(dirpath, "queries.fosn"), "w") as f:
-        f.write(os.path.join(dirpath, "cdna_mut.fa") + "\n")
-        f.write(os.path.join(CDNA, "calm.human.dna.fasta") + "\n")
+    fixtures.write_atomic(
+        os.path.join(DATA, "queries.fosn"),
+        os.path.join(dirpath, "cdna_mut.fa") + "\n"
+        + os.path.join(CDNA, "calm.human.dna.fasta") + "\n")
 
     # id list for fastaremove
-    with open(os.path.join(dirpath, "remove.ids"), "w") as f:
-        f.write("EMBL:K03199\n")
+    fixtures.write_atomic(
+        os.path.join(dirpath, "remove.ids"),
+        "EMBL:K03199\n")
 
     # softmasked copy of the calm cDNA (lowercase middle third)
     third = len(calm) // 3
@@ -166,13 +171,15 @@ def make_fixtures(dirpath: str = FIXDIR) -> None:
 
     # custom splice PSSM files (the man page's own examples,
     # ref: doc/man/man1/exonerate.1:1235-1273)
-    with open(os.path.join(dirpath, "splice5.pssm"), "w") as f:
-        f.write("# test 5' splice data\n# A C G T\n"
+    fixtures.write_atomic(
+        os.path.join(dirpath, "splice5.pssm"),
+        "# test 5' splice data\n# A C G T\n"
                 "28 40 17 14\n59 14 13 14\n8 5 81 6\nsplice\n"
                 "0 0 100 0\n0 0 0 100\n54 2 42 2\n74 8 11 8\n"
                 "5 6 85 4\n16 18 21 45\n")
-    with open(os.path.join(dirpath, "splice3.pssm"), "w") as f:
-        f.write("# test 3' splice data\n# A C G T\n"
+    fixtures.write_atomic(
+        os.path.join(dirpath, "splice3.pssm"),
+        "# test 3' splice data\n# A C G T\n"
                 "10 31 14 44\n8 36 14 43\n6 34 12 48\n6 34 8 52\n"
                 "9 37 9 45\n9 38 10 44\n8 44 9 40\n9 41 8 41\n"
                 "6 44 6 45\n6 40 6 48\n23 28 26 23\n2 79 1 18\n"
@@ -180,11 +187,7 @@ def make_fixtures(dirpath: str = FIXDIR) -> None:
 
 
 def _write_fasta(path, entries, width=60):
-    with open(path, "w") as f:
-        for name, seq in entries:
-            f.write(">" + name + "\n")
-            for i in range(0, len(seq), width):
-                f.write(seq[i:i + width] + "\n")
+    fixtures.write_atomic(path, fixtures.fasta_text(entries, width))
 
 
 _calm_dna = os.path.join(CDNA, "calm.human.dna.fasta")
@@ -365,7 +368,7 @@ CASES = [
       _genome] + _VULG + _NOAL),
     ("fosn_queries", "exonerate",
      ["-m", "ungapped", "--bestn", "1",
-      os.path.join(FIXDIR, "queries.fosn"), _genome] + _VULG + _NOAL),
+      os.path.join(DATA, "queries.fosn"), _genome] + _VULG + _NOAL),
     ("exhaustive_est2genome", "exonerate",
      ["-m", "est2genome", "-E", "yes", "-S", "no", "--bestn", "1",
       _cdna_mut, os.path.join(FIXDIR, "genome_small.fa")]
@@ -380,8 +383,8 @@ CASES = [
     # all-vs-all over FOSN lists (4 proteins x 4 cDNAs)
     ("all_vs_all_p2d", "exonerate",
      ["-m", "protein2dna", "--bestn", "1",
-      os.path.join(FIXDIR, "proteins.fosn"),
-      os.path.join(FIXDIR, "cdnas.fosn")] + _VULG + _NOAL),
+      os.path.join(DATA, "proteins.fosn"),
+      os.path.join(DATA, "cdnas.fosn")] + _VULG + _NOAL),
 
     # ipcress
     ("ipcress_simple", "ipcress", [_ipcress, _calm_dna]),
@@ -530,6 +533,8 @@ CASES = [
 _CMDLINE_RE = re.compile(r"^Command line: \[.*?\]$", re.M | re.S)
 _HOSTNAME_RE = re.compile(r"^Hostname: \[.*\]$", re.M)
 _GFFDATE_RE = re.compile(r"^##date \d{4}-\d{2}-\d{2}$", re.M)
+# where the corpus lives is a property of the checkout, not of the output
+CORPUS_TOKEN = "{CORPUS}"
 
 
 def run_script(steps, run_step, tmpdir) -> str:
@@ -560,4 +565,4 @@ def normalize(text: str) -> str:
     text = _CMDLINE_RE.sub("Command line: [NORMALIZED]", text)
     text = _HOSTNAME_RE.sub("Hostname: [NORMALIZED]", text)
     text = _GFFDATE_RE.sub("##date [NORMALIZED]", text)
-    return text
+    return text.replace(DATA, CORPUS_TOKEN)

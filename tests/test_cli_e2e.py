@@ -6,9 +6,13 @@ import pytest
 
 from exonerate_tpu.cli.exonerate import main
 
-CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
-CDNA_DIR = "/root/reference/test/data/cdna"
-PROTEIN_DIR = "/root/reference/test/data/protein"
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
+CALM = DATA + "/cdna/calm.human.dna.fasta"
+CDNA_DIR = DATA + "/cdna"
+PROTEIN_DIR = DATA + "/protein"
 
 
 def run_cli(argv):
@@ -79,10 +83,11 @@ def test_protein2genome_split_codon_vulgar(tmp_path):
 
 
 def test_batched_first_path_matches_sequential(tmp_path, monkeypatch):
-    """GAM's batched first-path DP (Pallas, forced interpret mode) must
-    produce byte-identical output to the sequential optimal.find_path
-    loop on a multi-locus est2genome case with subopt enabled."""
-    from exonerate_tpu.engine import optimal
+    """The accelerator's exhaustive route (reduced-space region scan on
+    the XLA wavefront, then the path DP on the discovered box) must
+    produce byte-identical output to the host route, on a multi-locus
+    est2genome locus-heuristic case with subopt enabled."""
+    from exonerate_tpu import device, observe
     from exonerate_tpu.seqio import iter_fasta
 
     calm = str(list(iter_fasta(CALM))[0])
@@ -98,10 +103,12 @@ def test_batched_first_path_matches_sequential(tmp_path, monkeypatch):
     tf.write_text(">t\n" + target + "\n")
     args = ["-m", "est2genome", "--showvulgar", "yes",
             "--showalignment", "no", str(qf), str(tf)]
+    monkeypatch.setenv("EXONERATE_TPU_HEURISTIC", "locus")
     seq_text = run_cli(args)
-    monkeypatch.setattr(optimal, "_FORCE_PRESCAN", True)
-    monkeypatch.setattr(optimal, "_PRESCAN_INTERPRET", True)
+    assert not observe.engine_counts.get("xla")
+    monkeypatch.setattr(device, "exhaustive_on_device", lambda: True)
     bat_text = run_cli(args)
+    assert observe.engine_counts.get("xla")
     assert "vulgar:" in seq_text
     assert len([l for l in seq_text.splitlines()
                 if l.startswith("vulgar:")]) >= 2
@@ -117,8 +124,8 @@ def test_heuristic_nonlocal_model_fatal(capsys):
     import io
     with pytest.raises(SystemExit) as e:
         main(["-m", "affine:global",
-              "/root/reference/test/data/cdna/calm.human.dna.fasta",
-              "/root/reference/test/data/cdna/calm.human.dna.fasta"],
+              DATA + "/cdna/calm.human.dna.fasta",
+              DATA + "/cdna/calm.human.dna.fasta"],
              out=io.StringIO())
     assert e.value.code == 1
     assert "Cannot perform heuristic alignments" in capsys.readouterr().err

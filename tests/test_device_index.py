@@ -3,12 +3,16 @@ import numpy as np
 import jax
 from jax.sharding import Mesh
 
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
 
 def test_device_index_lookup_matches_host(tmp_path):
     from exonerate_tpu.db.dataset import dataset_build
     from exonerate_tpu.db.index import Index, index_build
     from exonerate_tpu.db.device_index import DeviceIndex
-    CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+    CALM = DATA + "/cdna/calm.human.dna.fasta"
     esd = str(tmp_path / "d.esd.npz")
     esi = str(tmp_path / "d.esi.npz")
     dataset_build([CALM], esd)
@@ -50,7 +54,7 @@ def test_server_serves_from_device_index(tmp_path):
     from exonerate_tpu.cli.server import ExonerateServer
     from exonerate_tpu.seqio import iter_fasta
 
-    CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+    CALM = DATA + "/cdna/calm.human.dna.fasta"
     esd = str(tmp_path / "d.esd.npz")
     esi = str(tmp_path / "d.esi.npz")
     dataset_build([CALM], esd)

@@ -5,7 +5,11 @@ from exonerate_tpu.extmem import (index_fasta, lazy_sequence,
                                   MmapFastaLoader, PageCache)
 from exonerate_tpu.seqio import FastaDB, iter_fasta
 
-CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
+CALM = DATA + "/cdna/calm.human.dna.fasta"
 
 
 def test_lazy_windows_match_eager():

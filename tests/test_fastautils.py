@@ -7,9 +7,13 @@ import pytest
 
 from exonerate_tpu.cli.fastautils import main
 
-PROTEIN = "/root/reference/test/data/protein/calm.human.protein.fasta"
-CDNA = "/root/reference/test/data/cdna/calm.human.dna.fasta"
-PROTEIN_DIR = "/root/reference/test/data/protein"
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
+PROTEIN = DATA + "/protein/calm.human.protein.fasta"
+CDNA = DATA + "/cdna/calm.human.dna.fasta"
+PROTEIN_DIR = DATA + "/protein"
 
 
 def run(args):

@@ -5,7 +5,7 @@ axes where the round-3 parity bug hid).
 
 Each trial samples (model, fixture, flags, display-set) and requires
 byte-identical normalized stdout.  Subprocesses are forced onto the CPU
-backend (EXONERATE_TPU_PLATFORM=cpu) so the tier runs hermetically.
+backend (JAX_PLATFORMS=cpu) so the tier runs hermetically.
 """
 from __future__ import annotations
 
@@ -32,13 +32,13 @@ def _fixtures_and_cpu():
     sys.path.insert(0, os.path.join(REPO, "tests", "golden"))
     import cases
     cases.make_fixtures()
-    old = os.environ.get("EXONERATE_TPU_PLATFORM")
-    os.environ["EXONERATE_TPU_PLATFORM"] = "cpu"
+    old = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"
     yield
     if old is None:
-        os.environ.pop("EXONERATE_TPU_PLATFORM", None)
+        os.environ.pop("JAX_PLATFORMS", None)
     else:
-        os.environ["EXONERATE_TPU_PLATFORM"] = old
+        os.environ["JAX_PLATFORMS"] = old
 
 
 @pytest.mark.parametrize("seed", [1001, 2002])

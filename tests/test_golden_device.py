@@ -1,14 +1,11 @@
-"""Byte-golden parity with the device SDP tier forced (VERDICT r2
-weak #5: the device path's goldens were only ever run manually on the
-real chip — this puts them in CI).
+"""Byte-golden parity with the device SDP tier forced.
 
 EXONERATE_TPU_SDP=device routes eligible heuristic comparisons through
 HybridSDPPair (engine/sdp_hybrid.py): band planning + the device band
 scan + lazy host locus resolution with score cross-checks.  On the CPU
-test backend the scan runs as the XLA lax.scan expression
-(engine/sdp_device.py) — the same recurrence the Pallas kernel mirrors
-(tests/test_sdp_pallas.py covers kernel-vs-scan equality).  Output
-bytes must match the reference goldens exactly.
+test backend the scan runs as the same XLA lax.scan expression
+(engine/sdp_device.py) the GPU runs by default.  Output bytes must
+match the reference goldens exactly.
 """
 from __future__ import annotations
 

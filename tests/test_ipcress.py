@@ -3,7 +3,11 @@ import io
 
 from exonerate_tpu.cli.ipcress import main
 
-CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
+CALM = DATA + "/cdna/calm.human.dna.fasta"
 
 
 def test_ipcress_simple(tmp_path):

@@ -186,3 +186,37 @@ def test_target_tiled_single_pair_matches_single_device():
             tiled.query_end, tiled.target_end) == (
         single.score, single.query_start, single.target_start,
         single.query_end, single.target_end), (tiled, single)
+
+
+def test_multiprocess_query_job_matches_single_process(tmp_path):
+    """Two CLI processes joined by --coordinator/--processcount/
+    --processid (jax.distributed on the CPU) print, from process 0,
+    exactly the single-process report."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    qf, tf = _write_db(tmp_path)
+    args = ["--bestn", "2", "--showvulgar", "yes", "--showalignment",
+            "no", qf, tf]
+    want = _run(args)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+               XLA_FLAGS="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "exonerate_tpu.cli.exonerate"] + args
+        + ["--multihost", "query", "--coordinator", f"localhost:{port}",
+           "--processcount", "2", "--processid", str(k)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=env) for k in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    got = "".join(ln for ln in outs[0].splitlines(True)
+                  if not ln.startswith(("Command line:", "Hostname:",
+                                        "-- completed", "[Gloo]")))
+    assert got == want
+    assert outs[1].count("vulgar:") == 0

@@ -8,6 +8,10 @@ from exonerate_tpu.model.match import Match, MatchArgs, MatchType
 from exonerate_tpu.seeds.hsp import HspArgs, HspParam, HspSet
 from exonerate_tpu.seqio import Sequence, iter_fasta
 
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
 rng = np.random.default_rng(7)
 
 
@@ -79,7 +83,7 @@ def test_calm_selfalign_native():
     if native.get_lib() is None:
         pytest.skip("native toolchain unavailable")
     calm = list(iter_fasta(
-        "/root/reference/test/data/cdna/calm.human.dna.fasta"))[0]
+        DATA + "/cdna/calm.human.dna.fasta"))[0]
     calm.strand = "+"
     param = HspParam(Match(MatchType.DNA2DNA, MatchArgs()), HspArgs())
     seeds = collect_seeds(calm, calm)

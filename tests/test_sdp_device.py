@@ -240,3 +240,69 @@ def test_genome2genome_spliced():
             r.choice(list("ACGT")))
     _run("GENOME2GENOME", "".join(cdna), genome,
          [(10, 160, 80, 300), (130, 360, 80, 300)], margin=96)
+
+
+_CODON = {"A": "GCT", "C": "TGT", "D": "GAT", "E": "GAA", "F": "TTT",
+          "G": "GGT", "H": "CAT", "I": "ATT", "K": "AAA", "L": "CTT",
+          "M": "ATG", "N": "AAT", "P": "CCT", "Q": "CAA", "R": "CGT",
+          "S": "TCT", "T": "ACT", "V": "GTT", "W": "TGG", "Y": "TAT"}
+
+
+def _band_case(name):
+    """(model, query, target, hsps, kwargs) of the band-scan cases the
+    removed fused band kernel was checked on."""
+    import zlib
+    r = np.random.default_rng(zlib.crc32(name.encode()))
+    dna = lambda n: "".join("ACGT"[k] for k in r.integers(0, 4, n))
+
+    def mutate(s, n):
+        s = list(s)
+        for _ in range(n):
+            s[r.integers(0, len(s))] = "ACGT"[r.integers(0, 4)]
+        return "".join(s)
+    aas = list("ACDEFGHIKLMNPQRSTVWY")
+    if name == "est2genome_single_exon":
+        cdna = dna(120)
+        return ("EST2GENOME", mutate(cdna, 6), dna(200) + cdna + dna(200),
+                [(30, 230, 40, 60)], {})
+    if name == "est2genome_two_exons":
+        ex1, ex2 = dna(90), dna(90)
+        t = dna(100) + ex1 + "GT" + dna(96) + "AG" + ex2 + dna(100)
+        return ("EST2GENOME", mutate(ex1 + ex2, 4), t,
+                [(10, 110, 50, 70), (100, 300, 50, 70)], {})
+    if name == "est2genome_two_distant_loci":
+        cdna = dna(100)
+        t = dna(150) + cdna + dna(5000) + mutate(cdna, 3) + dna(150)
+        return ("EST2GENOME", mutate(cdna, 5), t,
+                [(20, 170, 40, 55), (20, 5270, 40, 55)], {})
+    if name == "est2genome_seed_layers_same_column":
+        cdna = dna(140)
+        return ("EST2GENOME", mutate(cdna, 4), dna(100) + cdna + dna(100),
+                [(10, 110, 40, 50), (60, 90, 40, 50)], {})
+    if name == "protein2genome_boundary":
+        prot = "".join(r.choice(aas, 50))
+        t = dna(60) + "".join(_CODON[c] for c in prot) + dna(60)
+        return ("PROTEIN2GENOME", prot, t, [(5, 75, 30, 80)],
+                dict(qadv=1, tadv=3, qt=PD))
+    if name == "ner_joint_span":
+        a, b = "".join(r.choice(aas, 60)), "".join(r.choice(aas, 60))
+        q = a + "".join(r.choice(aas, 25)) + b
+        t = a + "".join(r.choice(aas, 40)) + b
+        return ("NER", q, t, [(5, 5, 40, 220), (95, 110, 40, 220)],
+                dict(qt=(AlphabetType.PROTEIN, AlphabetType.PROTEIN)))
+    ex = dna(120)
+    return ("GENOME2GENOME", ex, dna(100) + ex + dna(100),
+            [(10, 110, 60, 200)], {})
+
+
+@pytest.mark.parametrize("name", [
+    "est2genome_single_exon", "est2genome_two_exons",
+    "est2genome_two_distant_loci", "est2genome_seed_layers_same_column",
+    "protein2genome_boundary", "ner_joint_span", "genome2genome"])
+def test_band_scan_pairs(name):
+    """Per-locus end scores (and, for non-boundary models, per-seed
+    start scores) equal the oracle's; a band flagged live never
+    overcounts (see _run)."""
+    mtname, q, t, hsps, kw = _band_case(name)
+    out = _run(mtname, q, t, hsps, **kw)
+    assert not out["xband"]

@@ -12,11 +12,15 @@ import pytest
 
 from exonerate_tpu.engine import sdp_native
 
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
 pytestmark = pytest.mark.skipif(sdp_native.get_lib() is None,
                                 reason="native toolchain unavailable")
 
-CDNA = "/root/reference/test/data/cdna"
-PROT = "/root/reference/test/data/protein"
+CDNA = DATA + "/cdna"
+PROT = DATA + "/protein"
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "golden", "data")
 

@@ -14,9 +14,13 @@ import time
 
 import pytest
 
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF_BIN = os.path.join(REPO, "build", "ref", "bin")
-CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+CALM = DATA + "/cdna/calm.human.dna.fasta"
 
 pytestmark = pytest.mark.skipif(
     not os.path.exists(os.path.join(REF_BIN, "exonerate-server")),
@@ -136,7 +140,7 @@ def _raw_session(port, commands):
     return replies
 
 
-PROT = "/root/reference/test/data/protein/calm.human.protein.fasta"
+PROT = DATA + "/protein/calm.human.protein.fasta"
 
 
 def test_translated_index_protein_query_matches_c_server(tmp_path):

@@ -12,7 +12,11 @@ from exonerate_tpu.cli.server import ExonerateServer
 from exonerate_tpu.db.dataset import dataset_build
 from exonerate_tpu.db.index import Index, index_build
 
-CALM = "/root/reference/test/data/cdna/calm.human.dna.fasta"
+from benchmarks.fixtures import corpus_dir
+
+DATA = corpus_dir()
+
+CALM = DATA + "/cdna/calm.human.dna.fasta"
 
 
 def _free_port():

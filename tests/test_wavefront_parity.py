@@ -1,6 +1,6 @@
 """Differential tests: JAX wavefront engine vs NumPy reference interpreter.
 
-The TPU analogue of the reference's interpreter-vs-generated-code
+The analogue of the reference's interpreter-vs-generated-code
 cross-check (`--compiled no`, ref: doc/man/man1/exonerate.1:775-782,
 SURVEY.md §4): both engines must agree on score AND region endpoints for
 random sequence pairs across the model zoo.

@@ -1,11 +1,11 @@
 """Row-scan band recurrence experiment (VERDICT r4 #7: "a different
 recurrence formulation").
 
-The anti-diagonal band kernel's step count is W+Q+1 — driven by the
+The anti-diagonal band scan's step count is W+Q+1 — driven by the
 compressed band width — while each step fills only ~Q lanes.  For the
 north-star protein2genome shape (Q~150 aa, W~160k band columns at
-10 Mb genome scale) that is catastrophic: measured 143.6 s for 128 DPs
-(~1.12 s/DP) where the HOST scheduler does the whole workload in 33 s.
+10 Mb genome scale) that loses to the host scheduler by a wide margin
+(BASELINE.md).
 
 This prototype measures the TRANSPOSED formulation on the same shape:
 vectors along W (the huge axis), lax.scan over the Q rows, so the step

@@ -2,8 +2,8 @@
 # Out-of-tree build of the reference exonerate C sources against the
 # minimal glib shim (tools/refbuild/glibshim).  Produces reference
 # binaries used ONLY to generate byte-golden outputs and baseline
-# timings for the TPU framework's parity/perf tests.  /root/reference
-# is never written to.
+# timings for the framework's parity/perf tests.  The reference source
+# tree ($REF_ROOT) is never written to.
 #
 # Usage: tools/refbuild/build.sh [outdir] [tests]
 #   default: production binaries (exonerate, server, ipcress, 24 utils)
@@ -15,9 +15,10 @@
 #            compiled WITH asserts (they are g_assert-based).
 set -euo pipefail
 
-REF=/root/reference/src
+REF_ROOT="${REF_ROOT:?set REF_ROOT to the reference exonerate source tree}"
+REF="$REF_ROOT/src"
 HERE="$(cd "$(dirname "$0")" && pwd)"
-OUT="${1:-/root/repo/build/ref}"
+OUT="${1:-$(cd "$(dirname "$0")/../.." && pwd)/build/ref}"
 MODE="${2:-prod}"
 BIN="$OUT/bin"
 
@@ -35,7 +36,7 @@ mkdir -p "$OBJ" "$BIN"
 
 CFLAGS="-O2 -g -w -fcommon $ASSERT_FLAGS -D_GNU_SOURCE -D_XOPEN_PATH_MAX=1024 \
   -DVERSION=\"2.4.0\" -DPACKAGE=\"exonerate\" \
-  -DSOURCE_ROOT_DIR=\"/root/reference\" \
+  -DSOURCE_ROOT_DIR=\"$REF_ROOT\" \
   -DGLIB_CFLAGS=\"-I$HERE/glibshim\" \
   -DCUSTOM_GUINT64_FORMAT=\"lu\" -DHOSTTYPE=\"linux-x86_64\" \
   -I$HERE/glibshim"
